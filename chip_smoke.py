@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""End-to-end smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives `src/repro_torch` only (never JAX, never the `repro` reference
+package) and prints one JSON object per phase:
+
+  1. `env` — the card (`nvidia-smi` name and power limit), torch and CUDA
+     versions.  Without a CUDA device the script exits 2 and prints no
+     result;
+  2. `build` — compiles the CUDA sources under
+     `src/repro_torch/kernels/csrc/` with nvcc and reports the seconds and
+     each kernel's registers/spills;
+  3. `kernel_vs_plain` — every CUDA kernel against its plain PyTorch
+     version on the card, bit-exact, on seeded random populations (P up
+     to 64, G up to 4,096, shared and per-individual planes, W in
+     {1, 33, 2048}), gateless plans, W == 0, and the five golden tenants
+     through the multi-tenant launch;
+  4. `main_path` — the launch counters are zeroed, then each tenant of
+     `tests/golden_emit/fleet.json` is loaded on the card and must
+     reproduce `tests/golden/<name>.npz` labels; `scores` must equal the
+     plain version; the arrhythmia tenant serves 262,144 seeded readings
+     through a `max_batch=65536` engine and 512 submitted requests through
+     a `max_batch=1024` engine; the five tenants run through one
+     `fleet_eval_words` launch.  Every kernel must have launched;
+  5. `timing` — kernel (CUDA events, median of 25 after warm-up), plain
+     version and bound at 1,024 and 65,536 readings for arrhythmia and
+     cardio, plus the engine's per-dispatch wall time;
+  6. the `kernels` line, the card's name and power limit, and last
+     `{"ok": true, "device": {...}}`.
+
+Any failed check raises, and the script exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+EMIT_DIR = ROOT / "tests" / "golden_emit"
+GOLDEN_DIR = ROOT / "tests" / "golden"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
+# CUDA-core rate outside
+# the tensor cores, used for the kernel's integer logic ops.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+OPS_PER_GATE_WORD = 6        # m0 ^ (ma&a) ^ (mb&b) ^ (mab&a&b)
+TIMED_REPS = 25
+PLAIN_REPS = 5
+SEED = 0
+
+
+def say(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def random_population(rng, n_in, G, n_out, P):
+    """Feed-forward random plans over every simulatable opcode (1..12)."""
+    op = rng.integers(1, 13, size=(P, G)).astype(np.int32)
+    hi = n_in + np.arange(G)
+    in0 = rng.integers(0, hi[None, :], size=(P, G)).astype(np.int32) \
+        if G else np.zeros((P, 0), np.int32)
+    in1 = rng.integers(0, hi[None, :], size=(P, G)).astype(np.int32) \
+        if G else np.zeros((P, 0), np.int32)
+    outputs = rng.integers(0, n_in + G, size=(P, n_out)).astype(np.int32)
+    return op, in0, in1, outputs
+
+
+def gpu_ms(fn, reps: int, isolate: bool) -> float:
+    """Median device time of `fn()` in ms over `reps` runs after one
+    warm-up.  With `isolate`, a spin kernel runs first so the host has
+    enqueued the launch before the start event fires: the time is the
+    kernel's alone, without the wrapper's host work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if isolate:
+            torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(programs: list[tuple[int, int, int, int]],
+             decode: bool) -> tuple[float, str]:
+    """Least time for the work of single-program walks `(n_in, G, n_out, W)`:
+    each input byte read once (word plane, plan) and each output byte
+    written once, over HBM bandwidth, against 6 int ops per gate per word
+    over the CUDA-core peak.  Returns (ms, "bytes" | "operations")."""
+    n_bytes = n_ops = 0
+    for n_in, G, n_out, W in programs:
+        out = W * 32 * 4 if decode else n_out * W * 4
+        n_bytes += n_in * W * 4 + out + (3 * G + n_out) * 4
+        n_ops += OPS_PER_GATE_WORD * G * W
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir() or not EMIT_DIR.is_dir():
+        print(f"chip_smoke: no src/repro_torch or tests/golden_emit beside "
+              f"{Path(__file__).name}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch import resolve_device
+    from repro_torch.compile.artifact import load_manifest, load_program
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.serve.engine import CircuitServingEngine
+
+    smi = nvidia_smi()
+    dev = resolve_device(None)
+    say("env", nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, python=sys.version.split()[0],
+        device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build([CK.SOURCE])
+    CK._lib()
+    build_s = time.perf_counter() - t0
+    log = Path(str(libs[CK.SOURCE]) + ".log")
+    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
+                                   if log.exists() else [])
+             if "registers" in ln or "spill" in ln]
+    say("build", seconds=round(build_s, 3), library=str(
+        libs[CK.SOURCE].relative_to(ROOT)), ptxas=ptxas)
+
+    # -- 3. every kernel against its plain version on the card -------------
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def checked_plan(prog) -> tuple:
+        """A program's validated `(1, G)` int32 plan rows + n_inputs."""
+        rows = (np.reshape(a, (1, -1)) for a in prog.plan()[:4])
+        return (*D.check_plan(*rows, prog.ir.n_inputs), prog.ir.n_inputs)
+
+    rng = np.random.default_rng(SEED)
+    stats = {k: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+             for k in CK.LAUNCHES}
+
+    def compare(name, got, want):
+        if got.shape != want.shape:
+            fail(f"{name}: shape {tuple(got.shape)} != plain "
+                 f"{tuple(want.shape)}")
+        err = int((got.long() - want.long()).abs().max().item()) \
+            if got.numel() else 0
+        s = stats[name]
+        s["cases"] += 1
+        s["mismatches"] += int(err != 0)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+
+    cases = [  # (n_in, G, n_out, P, W, per_individual)
+        (274, 3020, 4, 1, 2048, False),
+        (16, 4096, 8, 1, 2048, False),
+        (8, 512, 3, 64, 2048, False),
+        (32, 4096, 8, 64, 33, True),
+        (12, 300, 5, 17, 33, True),
+        (274, 3020, 4, 4, 1, True),
+        (6, 40, 3, 5, 1, False),
+        (5, 0, 2, 3, 33, False),        # gateless plans
+        (3, 0, 3, 2, 1, True),
+        (4, 10, 2, 3, 0, False),        # W == 0
+        (4, 10, 2, 3, 0, True),
+    ]
+    for n_in, G, n_out, P, W, per_ind in cases:
+        plan = [t(a) for a in random_population(rng, n_in, G, n_out, P)]
+        shape = (P, n_in, W) if per_ind else (n_in, W)
+        words = t(rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64)
+                  .astype(np.uint32).view(np.int32))
+        compare("fused_eval_uint", CK.fused_eval_uint(*plan, words, n_in),
+                CS.population_eval_uint(*plan, words, n_in))
+        compare("simulate_population",
+                CK.simulate_population(*plan, words, n_in),
+                CS.simulate_population(*plan, words, n_in))
+        torch.cuda.synchronize()
+
+    rows = load_manifest(EMIT_DIR)
+    progs = {r["name"]: load_program(EMIT_DIR / r["program"], device=dev,
+                                     expect_sha256=r["sha256"])
+             for r in rows}
+    golden = {n: np.load(GOLDEN_DIR / f"{n}.npz") for n in progs}
+    for S_extra in (0, 2048, 65536):
+        words_list = []
+        for i, (name, prog) in enumerate(progs.items()):
+            x = golden[name]["x"]
+            if S_extra:
+                reps = -(-(S_extra + 96 * i) // x.shape[0])
+                x = np.tile(x, (reps, 1))[: S_extra + 96 * i]
+            words_list.append(prog.pack_input_bits(prog.binarize(x)))
+        checked = [checked_plan(prog) for prog in progs.values()]
+        got = CK.fleet_eval_words(checked, words_list)
+        padded = CK.pad_fleet(checked, words_list)
+        want = CS.population_eval_uint(*padded[:5], padded[5])
+        for tenant, w_t in enumerate(padded[6]):
+            compare("fleet_eval_words", got[tenant],
+                    want[tenant, : w_t * 32])
+    torch.cuda.synchronize()
+    say("kernel_vs_plain", kernels=stats)
+    for name, s in stats.items():
+        if s["mismatches"]:
+            fail(f"{name}: {s['mismatches']} of {s['cases']} cases differ "
+                 f"from the plain version (max abs err {s['max_abs_err']})")
+
+    # -- 4. main path, counted ----------------------------------------------
+    CK.reset_launches()
+    for r in rows:
+        prog = load_program(EMIT_DIR / r["program"], device="cuda",
+                            expect_sha256=r["sha256"])
+        progs[r["name"]] = prog
+        fix = golden[r["name"]]
+        labels = prog.predict(fix["x"])
+        if not np.array_equal(labels, fix["labels"]):
+            fail(f"{r['name']}: labels differ from tests/golden")
+        xbin = prog.binarize(fix["x"])
+        got = prog.scores(xbin)
+        tap = np.asarray(prog.ir.taps["score"], np.int32)
+        plan = [t(a) for a in checked_plan(prog)[:3]] + [t(tap.reshape(1, -1))]
+        outw = CS.simulate_population(*plan, prog.pack_input_bits(xbin),
+                                      prog.ir.n_inputs)
+        want = CS.decode_words(outw.reshape(*tap.shape, -1))
+        want = want[:, : xbin.shape[0]].T.cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"{r['name']}: scores differ from the plain version")
+    say("golden", tenants=sorted(progs), readings_each=96,
+        labels_equal=True, scores_equal_plain=True)
+
+    arr = progs["arrhythmia"]
+    thr = arr.thresholds.astype(np.float32)
+    x_stream = (thr[None, :] + rng.standard_normal(
+        (262_144, thr.shape[0]), dtype=np.float32)
+        * np.maximum(np.abs(thr), 1.0)[None, :])
+    big = CircuitServingEngine(arr, max_batch=65536)
+    big.warmup()
+    labels = big.classify_stream(x_stream)
+    words = arr.pack_input_bits(arr.binarize(x_stream))
+    plan_arr = [t(a) for a in checked_plan(arr)[:4]]
+    want = CS.population_eval_uint(*plan_arr, words, arr.ir.n_inputs)[0]
+    want = want[: x_stream.shape[0]].cpu().numpy()
+    if not np.array_equal(labels, want):
+        fail("arrhythmia classify_stream differs from the plain version")
+    small = CircuitServingEngine(arr, max_batch=1024)
+    small.warmup()
+    reqs = [small.submit(row) for row in x_stream[:512]]
+    done = small.flush()
+    if [r.uid for r in done] != list(range(512)) or \
+            [r.label for r in reqs] != [int(v) for v in want[:512]]:
+        fail("submit/flush labels differ from the plain version")
+    say("serving", tenant="arrhythmia", stream=big.stats.summary(),
+        submit_flush=small.stats.summary())
+
+    engines = {n: CircuitServingEngine(p, max_batch=1024)
+               for n, p in progs.items()}
+    packed = [engines[n].prepare_packed_batch(golden[n]["x"]) for n in progs]
+    fused = D.fleet_eval_words([progs[n].plan() for n in progs],
+                               [w for w, _ in packed], device="cuda")
+    for n, (_, B), lab in zip(progs, packed, fused):
+        if not np.array_equal(lab[:B], golden[n]["labels"]):
+            fail(f"{n}: fleet_eval_words labels differ from tests/golden")
+    launches = dict(CK.LAUNCHES)
+    say("main_path", launches=launches, fleet_tenants=len(progs),
+        fleet_labels_equal=True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the main path never launched {name}")
+
+    # -- 5. timing ----------------------------------------------------------
+    timings = []
+    for name in ("arrhythmia", "cardio"):
+        prog = progs[name]
+        n_in, G, n_out = prog.ir.n_inputs, prog.ir.n_gates, prog.ir.n_outputs
+        plan = [t(a) for a in checked_plan(prog)[:4]]
+        tap = np.asarray(prog.ir.taps["score"], np.int32).reshape(1, -1)
+        tap_plan = plan[:3] + [t(tap)]
+        for batch in (1024, 65536):
+            x = x_stream[:batch] if name == "arrhythmia" else np.tile(
+                golden[name]["x"], (-(-batch // 96), 1))[:batch]
+            words = prog.pack_input_bits(prog.binarize(x))
+            W = words.shape[1]
+            row = {"tenant": name, "readings": batch, "W": W, "G": G,
+                   "n_in": n_in, "depth": prog.ir.depth}
+            row["fused_ms"] = gpu_ms(
+                lambda: CK.fused_eval_uint(*plan, words, n_in), TIMED_REPS,
+                True)
+            row["fused_plain_ms"] = gpu_ms(
+                lambda: CS.population_eval_uint(*plan, words, n_in),
+                PLAIN_REPS, False)
+            row["fused_bound_ms"], row["fused_bound_by"] = bound_ms(
+                [(n_in, G, n_out, W)], True)
+            row["simulate_ms"] = gpu_ms(
+                lambda: CK.simulate_population(*tap_plan, words, n_in),
+                TIMED_REPS, True)
+            row["simulate_plain_ms"] = gpu_ms(
+                lambda: CS.simulate_population(*tap_plan, words, n_in),
+                PLAIN_REPS, False)
+            row["simulate_bound_ms"], row["simulate_bound_by"] = bound_ms(
+                [(n_in, G, tap.shape[1], W)], False)
+            eng = CircuitServingEngine(prog, max_batch=batch)
+            eng.warmup()
+            for _ in range(TIMED_REPS):
+                eng.classify_batch(x)
+            row["engine_dispatch_p50_ms"] = eng.stats.percentile_ms(50)
+            timings.append(row)
+            say("timing", **row)
+
+    fleet_rows = []
+    for batch in (1024, 65536):
+        plans, words_list = [], []
+        for name, prog in progs.items():
+            x = np.tile(golden[name]["x"], (-(-batch // 96), 1))[:batch]
+            plans.append(checked_plan(prog))
+            words_list.append(prog.pack_input_bits(prog.binarize(x)))
+        padded = CK.pad_fleet(plans, words_list)
+        T, G_pad = padded[0].shape
+        n_in_max, W_max = padded[5], max(padded[6])
+        row = {"tenants": T, "readings_each": batch, "W": W_max,
+               "G_padded": G_pad, "n_in_padded": n_in_max}
+        row["fleet_ms"] = gpu_ms(
+            lambda: CK.fleet_eval_words(plans, words_list), TIMED_REPS, True)
+        row["fleet_plain_ms"] = gpu_ms(
+            lambda: CS.population_eval_uint(*padded[:5], n_in_max),
+            PLAIN_REPS, False)
+        row["fleet_bound_ms"], row["fleet_bound_by"] = bound_ms(
+            [(p[4], p[0].shape[1], p[3].shape[1], w.shape[1])
+             for p, w in zip(plans, words_list)], True)
+        fleet_rows.append(row)
+        say("timing_fleet", **row)
+
+    # -- 6. summary -----------------------------------------------------------
+    main_row = next(r for r in timings
+                    if r["tenant"] == "arrhythmia" and r["readings"] == 65536)
+    src = "src/repro_torch/kernels/csrc/circuit_sim.cu"
+    kernels = [
+        {"name": "fused_eval_uint", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/pallas_circuit_sim.py:183",
+         "launches": launches["fused_eval_uint"],
+         "max_abs_err": stats["fused_eval_uint"]["max_abs_err"],
+         "ms": main_row["fused_ms"], "plain_ms": main_row["fused_plain_ms"],
+         "bound_ms": main_row["fused_bound_ms"],
+         "bound_by": main_row["fused_bound_by"], "library_ms": None,
+         "cases": stats["fused_eval_uint"]["cases"],
+         "mismatches": stats["fused_eval_uint"]["mismatches"],
+         "shape": "arrhythmia, 65536 readings"},
+        {"name": "simulate_population", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/pallas_circuit_sim.py:78",
+         "launches": launches["simulate_population"],
+         "max_abs_err": stats["simulate_population"]["max_abs_err"],
+         "ms": main_row["simulate_ms"],
+         "plain_ms": main_row["simulate_plain_ms"],
+         "bound_ms": main_row["simulate_bound_ms"],
+         "bound_by": main_row["simulate_bound_by"], "library_ms": None,
+         "cases": stats["simulate_population"]["cases"],
+         "mismatches": stats["simulate_population"]["mismatches"],
+         "shape": "arrhythmia score taps, 65536 readings"},
+        {"name": "fleet_eval_words", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/pallas_circuit_sim.py:322",
+         "launches": launches["fleet_eval_words"],
+         "max_abs_err": stats["fleet_eval_words"]["max_abs_err"],
+         "ms": fleet_rows[1]["fleet_ms"],
+         "plain_ms": fleet_rows[1]["fleet_plain_ms"],
+         "bound_ms": fleet_rows[1]["fleet_bound_ms"],
+         "bound_by": fleet_rows[1]["fleet_bound_by"], "library_ms": None,
+         "cases": stats["fleet_eval_words"]["cases"],
+         "mismatches": stats["fleet_eval_words"]["mismatches"],
+         "shape": "five golden tenants, 65536 readings each"},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

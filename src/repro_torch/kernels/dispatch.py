@@ -1,0 +1,171 @@
+"""Dispatch of the gate-simulation kernels over devices.
+
+The port's `repro.kernels.dispatch`.  The reference picks an executor by
+backend name; here the device decides.  Every entry point takes numpy
+plans, validates them once on the host (`check_plan`: the CUDA kernel
+trusts every node id), moves them to the device and runs the wrappers of
+`cuda_circuit_sim`, which launch the kernel for CUDA tensors and run the
+plain PyTorch version for CPU tensors.  `devices=None` means the current
+CUDA device and raises without one; there is no fallback to the CPU.
+
+  * `population_eval_uint` / `population_eval_pop` split the population
+    axis across an explicit device list;
+  * `program_eval_words` runs one program over a large batch and splits
+    the packed *word* axis across the devices;
+  * `fleet_eval_words` runs every tenant of a manifest in one launch;
+  * `replica_devices` pins serving replicas round-robin to CUDA devices.
+
+Results come back to the host as int64 numpy arrays, as the reference's do.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.circuits import N_OPS
+from repro_torch.device import resolve_device
+from repro_torch.kernels import circuit_sim as CS
+from repro_torch.kernels import cuda_circuit_sim as CK
+
+
+def replica_devices(index: int, devices=None) -> tuple:
+    """Round-robin device pin for serving-engine replica `index`.
+
+    With `devices=None` the candidates are the `torch.cuda.device_count()`
+    CUDA devices, and none is an error: replicas never land on the CPU
+    unless the caller lists it.
+    """
+    if index < 0:
+        raise ValueError("replica index must be >= 0")
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("no CUDA device to pin replicas to; pass "
+                               "devices explicitly (e.g. ('cpu',))")
+        devs = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("no devices to pin replicas to")
+    return (devs[index % len(devs)],)
+
+
+def check_plan(op, in0, in1, outputs, n_inputs: int) -> tuple:
+    """Validate a `(P, G)` population plan on the host; returns int32 arrays.
+
+    Raises `ValueError` on mismatched shapes, unknown opcodes, or a plan
+    that is not feed-forward (gate g reading a node id >= n_inputs + g)
+    or taps an output outside the node range.
+    """
+    op = np.ascontiguousarray(op, dtype=np.int32)
+    in0 = np.ascontiguousarray(in0, dtype=np.int32)
+    in1 = np.ascontiguousarray(in1, dtype=np.int32)
+    outputs = np.ascontiguousarray(outputs, dtype=np.int32)
+    if op.ndim != 2 or in0.shape != op.shape or in1.shape != op.shape:
+        raise ValueError(f"op/in0/in1 must share one (P, G) shape, got "
+                         f"{op.shape}, {in0.shape}, {in1.shape}")
+    if outputs.ndim != 2 or outputs.shape[0] != op.shape[0]:
+        raise ValueError(f"outputs must be (P, n_out), got {outputs.shape}")
+    G = op.shape[1]
+    ids = n_inputs + np.arange(G, dtype=np.int64)
+    if ((op < 0) | (op >= N_OPS)).any():
+        raise ValueError("unknown gate opcode in plan")
+    if ((in0 < 0) | (in0 >= ids) | (in1 < 0) | (in1 >= ids)).any():
+        raise ValueError("plan is not feed-forward")
+    if ((outputs < 0) | (outputs >= n_inputs + G)).any():
+        raise ValueError("output id out of range")
+    return op, in0, in1, outputs
+
+
+def _devices(devices) -> list[torch.device]:
+    if devices is None:
+        return [resolve_device(None)]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("empty device list")
+    return devs
+
+
+def _device_slices(n: int, n_dev: int) -> list[slice]:
+    """Round-even contiguous slices, one per device (empty ones drop)."""
+    per = max(1, -(-n // n_dev))
+    return [slice(s, min(s + per, n)) for s in range(0, n, per)] or \
+        [slice(0, 0)]
+
+
+def _to(arrays, dev) -> list[torch.Tensor]:
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def population_eval_uint(op, in0, in1, outputs, packed_u64: np.ndarray,
+                         n_inputs: int, devices=None) -> np.ndarray:
+    """Per-vector decoded outputs `(P, S)` int64 for a population of netlists.
+
+    `packed_u64` is `(n_inputs, W)` shared or `(P, n_inputs, W)`
+    per-individual uint64 words (`S = 64 W`).  The population axis splits
+    across `devices`.
+    """
+    plan = check_plan(op, in0, in1, outputs, n_inputs)
+    words32 = CS.pack_words32(packed_u64)
+    per_individual = words32.ndim == 3
+    devs = _devices(devices)
+    outs = []
+    for sl, dev in zip(_device_slices(plan[0].shape[0], len(devs)), devs):
+        shard = _to([np.ascontiguousarray(a[sl]) for a in plan], dev)
+        words = CS.words_tensor(words32[sl] if per_individual else words32,
+                                dev)
+        outs.append(CK.fused_eval_uint(*shard, words, n_inputs).cpu())
+    return torch.cat(outs, dim=0).numpy().astype(np.int64)
+
+
+def population_eval_pop(pop, packed_u64: np.ndarray,
+                        devices=None) -> np.ndarray:
+    """`population_eval_uint` over a population object (`op`, `in0`, `in1`,
+    `outputs`, `n_inputs` attributes, e.g. `NetlistPopulation`)."""
+    return population_eval_uint(pop.op, pop.in0, pop.in1, pop.outputs,
+                                packed_u64, pop.n_inputs, devices=devices)
+
+
+def program_eval_words(op, in0, in1, outputs, words32, n_inputs: int,
+                       devices=None) -> np.ndarray:
+    """Single-program serving dispatch: `(n_inputs, W)` words -> `(P, W*32)`
+    int64 decoded outputs.
+
+    `words32` is a uint32 numpy plane or an int32 bit-pattern tensor
+    (e.g. packed on the device by `CircuitProgram.pack_input_bits`).  The
+    word axis splits round-even across `devices` and the shards'
+    results concatenate on the host.
+    """
+    plan = check_plan(op, in0, in1, outputs, n_inputs)
+    if words32.ndim != 2:
+        raise ValueError("program_eval_words wants a shared (n_inputs, W) "
+                         "word plane")
+    devs = _devices(devices)
+    outs = []
+    for sl, dev in zip(_device_slices(words32.shape[1], len(devs)), devs):
+        words = CS.words_tensor(words32[:, sl], dev)
+        outs.append(CK.fused_eval_uint(*_to(plan, dev), words,
+                                       n_inputs).cpu())
+    return torch.cat(outs, dim=1).numpy().astype(np.int64)
+
+
+def fleet_eval_words(plans: list, words_list: list,
+                     device=None) -> list[np.ndarray]:
+    """Whole-manifest serving dispatch: T tenants' circuits in ONE launch.
+
+    `plans` holds one `(op, in0, in1, outputs, n_inputs)` plan per tenant
+    (flat or `(1, G)` rows) and `words_list` the matching `(n_inputs_t,
+    W_t)` word planes (uint32 numpy or int32 tensors).  Returns one
+    `(W_t * 32,)` int64 array per tenant, equal to dispatching each tenant
+    through `program_eval_words` on its own.
+    """
+    dev = resolve_device(device)
+    checked = []
+    for op, in0, in1, outputs, n_in in plans:
+        plan = check_plan(np.reshape(op, (1, -1)), np.reshape(in0, (1, -1)),
+                          np.reshape(in1, (1, -1)),
+                          np.reshape(outputs, (1, -1)), int(n_in))
+        checked.append((*plan, int(n_in)))
+    words = [CS.words_tensor(w, dev) for w in words_list]
+    return [o.cpu().numpy().astype(np.int64)
+            for o in CK.fleet_eval_words(checked, words)]

@@ -1,0 +1,80 @@
+"""The port stands alone: no JAX, nothing of `repro`, no silent CPU.
+
+* Importing `repro_torch` and serving a committed bundle loads neither
+  `jax` nor any `repro` module (checked in a fresh interpreter).
+* No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
+  calls `torch.compile`.
+* An entry point called without `device` on a machine without CUDA raises
+  instead of running on the CPU.
+"""
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.compile import artifact as A  # noqa: E402
+from repro_torch.kernels import dispatch as D  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+EMIT_DIR = ROOT / "tests" / "golden_emit"
+
+FORBIDDEN = [
+    (re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M), "imports jax"),
+    (re.compile(r"^\s*from\s+repro(\.|\s)", re.M), "imports from repro"),
+    (re.compile(r"^\s*import\s+repro(\.|\s|,|$)", re.M), "imports repro"),
+    (re.compile(r"(?<![\w.])torch\.compile\b"), "calls torch.compile"),
+]
+
+
+def test_serving_loads_neither_jax_nor_repro():
+    script = f"""
+import json, sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+from repro_torch.compile.artifact import load_program
+from repro_torch.serve.engine import CircuitServingEngine
+fix = np.load({str(ROOT / 'tests' / 'golden' / 'cardio.npz')!r})
+prog = load_program({str(EMIT_DIR / 'cardio_program.npz')!r}, device="cpu")
+ok = bool((prog.predict(fix["x"]) == fix["labels"]).all())
+ok &= bool((CircuitServingEngine(prog, 64).classify_stream(fix["x"])
+            == fix["labels"]).all())
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({{"ok": ok, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_stand_alone(path):
+    text = path.read_text()
+    for pattern, what in FORBIDDEN:
+        m = pattern.search(text)
+        assert m is None, f"{path.name} {what}: {m.group(0).strip()!r}"
+
+
+def test_entry_points_without_device_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        A.load_program(EMIT_DIR / "cardio_program.npz")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        D.replica_devices(0)
+    assert resolve_device("cpu") == torch.device("cpu")
