@@ -13,10 +13,13 @@ package) and prints one JSON object per phase:
      `src/repro_torch/kernels/csrc/` with nvcc and reports the seconds and
      each kernel's registers/spills;
   3. `kernel_vs_plain` — every CUDA kernel against its plain PyTorch
-     version on the card, bit-exact, on seeded random populations (P up
-     to 64, G up to 4,096, shared and per-individual planes, W in
-     {1, 33, 2048}), gateless plans, W == 0, and the five golden tenants
-     through the multi-tenant launch;
+     version on the card: the gate-walk kernels bit-exact on seeded random
+     populations (P up to 64, G up to 4,096, shared and per-individual
+     planes, W in {1, 33, 2048}), gateless plans, W == 0, and the five
+     golden tenants through the multi-tenant launch; the ternary matmul in
+     bf16 and f32 at M in {1, 7, 8, 256, 768} and the LM path's (K, N), a
+     ragged N and a K that is not a multiple of 32, every element inside
+     the f32 envelope around the float64 product;
   4. `main_path` — the launch counters are zeroed, then each tenant of
      `tests/golden_emit/fleet.json` is loaded on the card and must
      reproduce `tests/golden/<name>.npz` labels; `scores` must equal the
@@ -24,11 +27,29 @@ package) and prints one JSON object per phase:
      through a `max_batch=65536` engine and 512 submitted requests through
      a `max_batch=1024` engine; the five tenants run through one
      `fleet_eval_words` launch.  Every kernel must have launched;
-  5. `timing` — kernel (CUDA events, median of 25 after warm-up), plain
+  5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
+     vocab 128,256) with 2-bit packed ternary projections in bf16, weights
+     from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
+     32 new tokens each) through `ServingEngine(max_batch=8,
+     cache_len=256)`.  The ternary-matmul counter is zeroed just before
+     and must read 7 projections x 16 layers x forwards just after; every
+     request must get its 32 tokens and the logits must be finite;
+  6. `lm_cross_device` — the same weights in float32, one 16-token prompt
+     and 8 greedy steps on the card (kernel) and on the CPU (plain
+     versions): logits agree within `LOGIT_TOL`, tokens agree wherever the
+     top-2 margin exceeds it;
+  7. `timing` — kernel (CUDA events, median of 25 after warm-up), plain
      version and bound at 1,024 and 65,536 readings for arrhythmia and
-     cardio, plus the engine's per-dispatch wall time;
-  6. the `kernels` line, the card's name and power limit, and last
+     cardio, plus the engine's per-dispatch wall time; `timing_ternary` —
+     the ternary-matmul kernel, its plain version, the bound and one
+     `torch.matmul` on weights unpacked to bf16 beforehand (`library_ms`,
+     a yardstick the port never calls) at each (M, K, N) of the LM path;
+  8. the `kernels` line, the card's name and power limit, and last
      `{"ok": true, "device": {...}}`.
+
+Float32 products on the card run in full float32: TF32 is switched off
+(`torch.backends.cuda.matmul.allow_tf32 = False`, and the same for cuDNN)
+before any plain version runs.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -52,10 +73,22 @@ GOLDEN_DIR = ROOT / "tests" / "golden"
 # the tensor cores, used for the kernel's integer logic ops.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core rate
 OPS_PER_GATE_WORD = 6        # m0 ^ (ma&a) ^ (mb&b) ^ (mab&a&b)
 TIMED_REPS = 25
 PLAIN_REPS = 5
 SEED = 0
+
+# The LM path's ternary-matmul shapes at llama3.2-1b: K x N of wq/wo,
+# wk/wv, w_gate/w_up and w_down, at decode (M = batch 8) and at prefill
+# (M = 8 x 96 prompt tokens).
+LM_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+LM_M = (8, 768)
+PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
+# Card (kernel) against CPU (plain versions) in float32 at full width:
+# both sum in f32 in different orders, ~1e-6 relative per product; over 16
+# layers that stays far below 1e-3 on logits of order 1.
+LOGIT_TOL = 1e-3
 
 
 def say(phase: str, **kw) -> None:
@@ -126,6 +159,206 @@ def bound_ms(programs: list[tuple[int, int, int, int]],
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
+                     ) -> tuple[float, str]:
+    """Least time for `(x @ unpack(w2)) * scale`: x, w2, scale and the f32
+    output each moved once over HBM bandwidth, against 2*M*K*N operations
+    at the bf16 tensor-core rate."""
+    n_bytes = M * K * x_bytes + (K // 4) * N + N * 4 + M * N * 4
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, \
+        2 * M * K * N / PEAK_BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def with_dtypes(tree: dict, defs: dict) -> dict:
+    """`tree` with every leaf cast to the dtype of its `ParamDef`."""
+    return {k: with_dtypes(v, defs[k]) if isinstance(v, dict)
+            else v.to(defs[k].dtype) for k, v in tree.items()}
+
+
+def greedy_logits(cfg, params, prompt, n_new, TF, torch, forced=None):
+    """Prefill `prompt` and decode `n_new - 1` steps greedily, as the
+    serving engine does; returns each step's logits on the host.  With
+    `forced`, feed those tokens instead of the argmax (so two devices see
+    the same inputs)."""
+    dev = params["embed"]["tokens"].device
+    tokens = torch.tensor([prompt], device=dev)
+    with torch.inference_mode():
+        hidden, cache = TF.prefill(cfg, params, {"tokens": tokens}, 256)
+        logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
+        out = [logits[0, 0].cpu()]
+        for step in range(n_new - 1):
+            tok = (torch.tensor([[forced[step]]], device=dev)
+                   if forced is not None else torch.argmax(logits, dim=-1))
+            logits, cache = TF.decode_step(cfg, params, cache, tok,
+                                           len(prompt) + step)
+            out.append(logits[0, 0].cpu())
+    return torch.stack(out)
+
+
+def ternary_vs_plain(dev, rng) -> dict:
+    """The ternary-matmul kernel and its plain version on the card against
+    the float64 product: every element inside the f32 envelope
+    eps * sqrt(K) * (|x| @ |w|) * |scale| + 1e-6 (both sum in f32, in
+    different orders).  Bytes are drawn from all 256 values, so code 0b11
+    occurs.  Returns per-dtype counts."""
+    import torch
+
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import ternary_matmul as TM
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    tstats = {dt: {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
+                   "max_err_over_envelope": 0.0, "max_abs_err": 0.0}
+              for dt in ("bfloat16", "float32")}
+    eps32 = float(np.finfo(np.float32).eps)
+    for dt in (torch.bfloat16, torch.float32):
+        s = tstats[str(dt).removeprefix("torch.")]
+        for M in (1, 7, 8, 256, 768):
+            for K, N in LM_KN + ((2048, 200), (36, 130)):
+                x = t(rng.standard_normal((M, K), dtype=np.float32)).to(dt)
+                w2 = t(rng.integers(-128, 128, (K // 4, N)).astype(np.int8))
+                sc = t(np.abs(rng.normal(1, 0.1, (1, N))).astype(np.float32))
+                got = TM.ternary_matmul(x, w2, sc)
+                plain = TM.ternary_matmul_plain(x, w2, sc)
+                x64, s64 = x.double(), sc.double()
+                w64 = unpack_ternary(w2, torch.float64)
+                exact = (x64 @ w64) * s64
+                bound = eps32 * K ** 0.5 * (
+                    (x64.abs() @ w64.abs()) * s64.abs()) + 1e-6
+                ratio = float(((got.double() - exact).abs() / bound).max())
+                s["cases"] += 1
+                s["mismatches"] += int(ratio > 1)
+                s["plain_mismatches"] += int(
+                    ((plain.double() - exact).abs() > bound).any())
+                s["max_err_over_envelope"] = max(
+                    s["max_err_over_envelope"], ratio)
+                s["max_abs_err"] = max(s["max_abs_err"], float(
+                    (got - plain).abs().max()))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return tstats
+
+
+def lm_phases(dev, cfg16) -> int:
+    """`lm_serving` and `lm_cross_device` on config `cfg16` (a bf16
+    ternary_packed config); returns the ternary-matmul launches of the
+    counted serving run."""
+    import torch
+
+    from repro_torch.kernels import cuda_ternary_matmul as CT
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_engine import LMServeStats, Request, \
+        ServingEngine
+
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    p32 = P.seeded_params(cfg32, seed=SEED, device=dev)
+    p16 = with_dtypes(p32, P.param_defs(cfg16))
+    weights_s = time.perf_counter() - t0
+    lm_rng = np.random.default_rng(SEED)
+    prompts = [lm_rng.integers(1, cfg16.vocab, n).tolist()
+               for n in [32] * 8 + [96] * 8]
+    engine = ServingEngine(cfg16, p16, max_batch=8, cache_len=256,
+                           device=dev)
+    engine.run([Request(uid=-1, prompt=prompts[0][:8], max_new_tokens=2)])
+    engine.stats = LMServeStats()                 # warm-up not counted
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=32)
+            for i, pr in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CT.reset_launches()
+    engine.run(reqs)
+    tm_launches = CT.LAUNCHES["ternary_matmul"]
+    lm = engine.stats.summary()
+    forwards = lm["prefills"] + lm["decode_steps"]
+    want_launches = PROJECTIONS_PER_LAYER * cfg16.n_layers * forwards
+    peak_bytes = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        batch = {"tokens": torch.tensor(prompts[8:], device=dev)}
+        hidden, cache = TF.prefill(cfg16, engine.params, batch, 256)
+        logits = TF.logits_from_hidden(cfg16, engine.params, hidden[:, -1:])
+        finite = bool(torch.isfinite(logits).all())
+        logits, _ = TF.decode_step(cfg16, engine.params, cache,
+                                   torch.argmax(logits, dim=-1), 96)
+        finite &= bool(torch.isfinite(logits).all())
+    say("lm_serving", arch=cfg16.name, quant=cfg16.quant,
+        n_layers=cfg16.n_layers, d_model=cfg16.d_model, vocab=cfg16.vocab,
+        params=P.param_count(cfg16), weights_s=weights_s, requests=len(reqs),
+        new_tokens=[len(r.output) for r in reqs], stats=lm,
+        ternary_matmul_launches=tm_launches, expected=want_launches,
+        logits_finite=finite, max_memory_allocated_bytes=peak_bytes)
+    if any(len(r.output) != 32 for r in reqs):
+        fail("lm_serving: a request did not get its 32 tokens")
+    if tm_launches != want_launches:
+        fail(f"lm_serving: ternary_matmul launched {tm_launches} times, "
+             f"expected {want_launches} (7 x {cfg16.n_layers} x {forwards} "
+             "forwards)")
+    if not finite:
+        fail("lm_serving: non-finite logits")
+    del engine, p16, cache, hidden, logits
+
+    prompt = lm_rng.integers(1, cfg32.vocab, 16).tolist()
+    card = greedy_logits(cfg32, p32, prompt, 8, TF, torch)
+    card_tokens = card.argmax(dim=-1).tolist()
+    p_cpu = P.tree_map(lambda a: a.cpu(), p32)
+    del p32
+    t0 = time.perf_counter()
+    host = greedy_logits(cfg32, p_cpu, prompt, 8, TF, torch,
+                         forced=card_tokens)
+    cpu_s = time.perf_counter() - t0
+    diff = (card - host).abs().max(dim=-1).values
+    top2 = host.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    host_tokens = host.argmax(dim=-1).tolist()
+    say("lm_cross_device", prompt_tokens=len(prompt), steps=len(card_tokens),
+        logit_tol=LOGIT_TOL, max_abs_diff_per_step=diff.tolist(),
+        top2_margin=margin.tolist(), card_tokens=card_tokens,
+        cpu_tokens=host_tokens, cpu_seconds=cpu_s)
+    if float(diff.max()) > LOGIT_TOL:
+        fail(f"lm_cross_device: logits differ by {float(diff.max()):.3g} > "
+             f"{LOGIT_TOL}")
+    for step, (a, b, m) in enumerate(zip(card_tokens, host_tokens, margin)):
+        if float(m) > LOGIT_TOL and a != b:
+            fail(f"lm_cross_device: step {step} token {a} on the card, "
+                 f"{b} on the CPU")
+    return tm_launches
+
+
+def ternary_timing(dev) -> list[dict]:
+    """Kernel, plain version, bound and `library_ms` (one torch.matmul on
+    weights unpacked to bf16 outside the timed region; a yardstick the port
+    never calls) at each (M, K, N) of the LM path, x in bf16."""
+    import torch
+
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import ternary_matmul as TM
+
+    rows = []
+    for M in LM_M:
+        for K, N in LM_KN:
+            x = torch.randn(M, K, device=dev, dtype=torch.bfloat16)
+            w2 = torch.randint(-128, 128, (K // 4, N), device=dev,
+                               dtype=torch.int8)
+            sc = torch.rand(1, N, device=dev) + 0.5
+            w_dense = unpack_ternary(w2, torch.bfloat16)
+            row = {"M": M, "K": K, "N": N, "x": "bfloat16"}
+            row["ms"] = gpu_ms(lambda: TM.ternary_matmul(x, w2, sc),
+                               TIMED_REPS, True)
+            row["plain_ms"] = gpu_ms(
+                lambda: TM.ternary_matmul_plain(x, w2, sc), PLAIN_REPS, True)
+            row["library_ms"] = gpu_ms(lambda: torch.matmul(x, w_dense) * sc,
+                                       TIMED_REPS, True)
+            row["bound_ms"], row["bound_by"] = ternary_bound_ms(M, K, N, 2)
+            rows.append(row)
+            say("timing_ternary", **row)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -140,11 +373,16 @@ def main() -> int:
 
     from repro_torch import resolve_device
     from repro_torch.compile.artifact import load_manifest, load_program
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import circuit_sim as CS
     from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.kernels import dispatch as D
     from repro_torch.serve.engine import CircuitServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = nvidia_smi()
     dev = resolve_device(None)
@@ -155,15 +393,19 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build([CK.SOURCE])
+    libs = _build.build([CK.SOURCE, CT.SOURCE])   # one nvcc each, together
     CK._lib()
+    CT._lib()
     build_s = time.perf_counter() - t0
-    log = Path(str(libs[CK.SOURCE]) + ".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
-    say("build", seconds=round(build_s, 3), library=str(
-        libs[CK.SOURCE].relative_to(ROOT)), ptxas=ptxas)
+    ptxas = {}
+    for source, lib in libs.items():
+        log = Path(str(lib) + ".log")
+        ptxas[source] = [ln.strip() for ln in (log.read_text().splitlines()
+                                               if log.exists() else [])
+                         if "registers" in ln or "spill" in ln]
+    say("build", seconds=round(build_s, 3),
+        libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
+        ptxas=ptxas)
 
     # -- 3. every kernel against its plain version on the card -------------
     def t(a):
@@ -235,11 +477,19 @@ def main() -> int:
             compare("fleet_eval_words", got[tenant],
                     want[tenant, : w_t * 32])
     torch.cuda.synchronize()
-    say("kernel_vs_plain", kernels=stats)
+
+    tstats = ternary_vs_plain(dev, rng)
+    say("kernel_vs_plain", kernels=stats, ternary_matmul=tstats)
     for name, s in stats.items():
         if s["mismatches"]:
             fail(f"{name}: {s['mismatches']} of {s['cases']} cases differ "
                  f"from the plain version (max abs err {s['max_abs_err']})")
+    for dt, s in tstats.items():
+        if s["mismatches"] or s["plain_mismatches"]:
+            fail(f"ternary_matmul {dt}: {s['mismatches']} kernel and "
+                 f"{s['plain_mismatches']} plain cases of {s['cases']} leave "
+                 f"the f32 envelope (largest err/envelope "
+                 f"{s['max_err_over_envelope']:.3f})")
 
     # -- 4. main path, counted ----------------------------------------------
     CK.reset_launches()
@@ -303,7 +553,11 @@ def main() -> int:
         if n <= 0:
             fail(f"the main path never launched {name}")
 
-    # -- 5. timing ----------------------------------------------------------
+    # -- 5, 6. LM serving at full width, counted; card against CPU -------
+    tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
+        quant="ternary_packed"))
+
+    # -- 7. timing ----------------------------------------------------------
     timings = []
     for name in ("arrhythmia", "cardio"):
         prog = progs[name]
@@ -365,9 +619,13 @@ def main() -> int:
         fleet_rows.append(row)
         say("timing_fleet", **row)
 
-    # -- 6. summary -----------------------------------------------------------
+    tm_rows = ternary_timing(dev)
+
+    # -- 8. summary -----------------------------------------------------------
     main_row = next(r for r in timings
                     if r["tenant"] == "arrhythmia" and r["readings"] == 65536)
+    tm_main = next(r for r in tm_rows
+                   if (r["M"], r["K"], r["N"]) == (8, 2048, 8192))
     src = "src/repro_torch/kernels/csrc/circuit_sim.cu"
     kernels = [
         {"name": "fused_eval_uint", "route": "cuda", "source": src,
@@ -402,6 +660,17 @@ def main() -> int:
          "cases": stats["fleet_eval_words"]["cases"],
          "mismatches": stats["fleet_eval_words"]["mismatches"],
          "shape": "five golden tenants, 65536 readings each"},
+        {"name": "ternary_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
+         "replaces": "src/repro/kernels/ternary_matmul.py:34",
+         "launches": tm_launches,
+         "max_abs_err": max(s["max_abs_err"] for s in tstats.values()),
+         "ms": tm_main["ms"], "plain_ms": tm_main["plain_ms"],
+         "bound_ms": tm_main["bound_ms"], "bound_by": tm_main["bound_by"],
+         "library_ms": tm_main["library_ms"],
+         "cases": sum(s["cases"] for s in tstats.values()),
+         "mismatches": sum(s["mismatches"] for s in tstats.values()),
+         "shape": "decode w_gate: M 8, K 2048, N 8192, bf16"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""The CUDA gate-walk kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 The kernel has no CPU mode, so these tests skip where
 `torch.cuda.is_available()` is false.  On a machine with a GPU and nvcc:
@@ -13,8 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.compile.artifact import load_manifest, load_program  # noqa: E402
+from repro_torch.core.ternary import unpack_ternary  # noqa: E402
 from repro_torch.kernels import circuit_sim as CS  # noqa: E402
 from repro_torch.kernels import cuda_circuit_sim as CK  # noqa: E402
+from repro_torch.kernels import cuda_ternary_matmul as CT  # noqa: E402
+from repro_torch.kernels import ternary_matmul as TM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +27,7 @@ TESTS = Path(__file__).parent
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -67,3 +70,45 @@ def test_golden_bundles_serve_through_the_kernel(cuda):
         fix = np.load(TESTS / "golden" / f"{row['name']}.npz")
         np.testing.assert_array_equal(prog.predict(fix["x"]), fix["labels"])
     assert CK.LAUNCHES["fused_eval_uint"] == len(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 8192), (8, 2048, 512),
+                                   (768, 8192, 2048), (7, 36, 130)])
+def test_ternary_matmul_kernel_inside_f32_envelope(cuda, M, K, N, dtype):
+    """Kernel and plain version on the card, each inside the f32 envelope
+    eps * sqrt(K) * (|x| @ |w|) * |scale| + 1e-6 of the float64 product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M * K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)) \
+        .to(cuda).to(getattr(torch, dtype))
+    w2 = torch.from_numpy(
+        rng.integers(-128, 128, (K // 4, N)).astype(np.int8)).to(cuda)
+    sc = torch.from_numpy(
+        np.abs(rng.normal(1, 0.1, (1, N))).astype(np.float32)).to(cuda)
+    before = CT.LAUNCHES["ternary_matmul"]
+    got = TM.ternary_matmul(x, w2, sc)
+    assert CT.LAUNCHES["ternary_matmul"] == before + 1
+    x64, w64, s64 = x.double(), unpack_ternary(w2, torch.float64), sc.double()
+    exact = (x64 @ w64) * s64
+    bound = float(np.finfo(np.float32).eps) * K ** 0.5 * (
+        (x64.abs() @ w64.abs()) * s64.abs()) + 1e-6
+    assert ((got.double() - exact).abs() <= bound).all()
+    plain = TM.ternary_matmul_plain(x, w2, sc)
+    assert ((plain.double() - exact).abs() <= bound).all()
+
+
+def test_lm_engine_projections_run_through_the_kernel(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import seeded_params
+    from repro_torch.serve.lm_engine import Request, ServingEngine
+
+    cfg = get_config("llama3.2-1b").reduced().replace(quant="ternary_packed")
+    eng = ServingEngine(cfg, seeded_params(cfg, 0, cuda), max_batch=2,
+                        cache_len=32, device=cuda)
+    CT.reset_launches()
+    reqs = eng.run([Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4)
+                    for i in range(3)])
+    forwards = eng.stats.n_prefills + eng.stats.decode_steps
+    assert [len(r.output) for r in reqs] == [4, 4, 4]
+    assert CT.LAUNCHES["ternary_matmul"] == 7 * cfg.n_layers * forwards

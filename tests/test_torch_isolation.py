@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of `repro`, no silent CPU.
 
-* Importing `repro_torch` and serving a committed bundle loads neither
-  `jax` nor any `repro` module (checked in a fresh interpreter).
+* Importing `repro_torch`, serving a committed bundle and running one
+  reduced LM decode step load neither `jax` nor any `repro` module
+  (checked in a fresh interpreter).
 * No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
   calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
@@ -19,7 +20,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.compile import artifact as A  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import dispatch as D  # noqa: E402
+from repro_torch.models.params import seeded_params  # noqa: E402
+from repro_torch.serve.lm_engine import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -45,6 +49,20 @@ prog = load_program({str(EMIT_DIR / 'cardio_program.npz')!r}, device="cpu")
 ok = bool((prog.predict(fix["x"]) == fix["labels"]).all())
 ok &= bool((CircuitServingEngine(prog, 64).classify_stream(fix["x"])
             == fix["labels"]).all())
+import torch
+import repro_torch.launch.serve
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as TF
+from repro_torch.models.params import seeded_params
+from repro_torch.serve.lm_engine import Request, ServingEngine
+cfg = get_config("llama3.2-1b").reduced().replace(quant="ternary_packed")
+params = seeded_params(cfg, 0, "cpu")
+cache = TF.init_cache(cfg, 1, 8, device="cpu")
+logits, _ = TF.decode_step(cfg, params, cache, torch.tensor([[3]]), 0)
+ok &= bool(torch.isfinite(logits).all())
+ok &= len(ServingEngine(cfg, params, 1, 8, device="cpu").run(
+    [Request(0, [1, 2], 2)])[0].output) == 2
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(json.dumps({{"ok": ok, "bad": bad}}))
@@ -77,4 +95,9 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         D.replica_devices(0)
+    cfg = get_config("llama3.2-1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        seeded_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, {})
     assert resolve_device("cpu") == torch.device("cpu")

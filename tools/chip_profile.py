@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where a serving dispatch spends its time on the GPU.
+"""Where a serving dispatch, or an LM step, spends its time on the GPU.
 
-    python3 tools/chip_profile.py
+    python3 tools/chip_profile.py          # compiled classifiers
+    python3 tools/chip_profile.py --lm     # llama3.2-1b, ternary_packed
 
 Loads the arrhythmia and cardio tenants of `tests/golden_emit/` on the
 current CUDA device and, at 1,024 and 65,536 readings a dispatch, prints
@@ -16,6 +17,14 @@ one JSON line each with:
   * `profile` — `torch.profiler` over 10 engine dispatches: the device's
     busy time (the sum of its kernels, copies and memsets) against the
     wall time, and the five largest device-side entries.
+
+With `--lm` it serves llama3.2-1b at full width (bf16, 2-bit packed
+ternary projections, weights from numpy seed 0) and prints one JSON line
+each for a prefill of 8 x 96 prompt tokens and for decode steps at batch 8
+(positions 96 onwards): the unprofiled median host-clock time of the
+step (ending with the tokens on the host, as the engine's), and under
+`torch.profiler` the device busy share and the largest device-side
+entries, with the ternary-matmul kernel's share of the busy time.
 
 The profiler adds its own host overhead to the wall time, so the busy
 share it reports is a lower bound.  Exits non-zero without a CUDA device.
@@ -49,6 +58,90 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def device_profile(fn, reps: int) -> dict:
+    """`torch.profiler` over `reps` calls of `fn`: wall time, device busy
+    time and share, the eight largest device-side entries, and the share
+    of the busy time spent in the ternary-matmul kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side activities only (kernels, memcpy, memset): the CPU ops
+    # that launched them carry the same time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.key not in PROFILER_OWN
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    ternary_us = sum(e.self_device_time_total for e in events
+                     if "ternary_matmul_kernel" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "calls": reps,
+        "device_ops_per_call": sum(e.count for e in events) / reps,
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "ternary_matmul_share_of_busy": ternary_us / busy_us if busy_us
+        else 0.0,
+        "top": [{"name": e.key[:90],
+                 "device_ms": e.self_device_time_total / 1e3,
+                 "count": e.count} for e in top],
+    }
+
+
+def profile_lm() -> None:
+    """Prefill and decode of llama3.2-1b (ternary_packed, bf16)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import seeded_params
+    from repro_torch.serve.lm_engine import ServingEngine
+
+    cfg = get_config("llama3.2-1b").replace(quant="ternary_packed")
+    engine = ServingEngine(cfg, seeded_params(cfg, 0), max_batch=8,
+                           cache_len=256)
+    params = engine.params
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (8, 96))).to(
+        engine.device)
+
+    def prefill():
+        with torch.inference_mode():
+            hidden, cache = TF.prefill(cfg, params, {"tokens": tokens}, 256)
+            logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
+            return torch.argmax(logits, dim=-1).cpu(), cache
+
+    tok, cache = prefill()
+    tok = tok.to(engine.device)
+    pos = [96]
+
+    def decode():
+        with torch.inference_mode():
+            logits, _ = TF.decode_step(cfg, params, cache, tok, pos[0])
+            torch.argmax(logits, dim=-1).cpu()
+        pos[0] += 1
+
+    print(json.dumps({"lm": cfg.name, "phase": "prefill", "batch": 8,
+                      "prompt_tokens": 96,
+                      "step_ms": median_ms(lambda: prefill(), 5),
+                      "profile": device_profile(lambda: prefill(), 3)}),
+          flush=True)
+    print(json.dumps({"lm": cfg.name, "phase": "decode", "batch": 8,
+                      "step_ms": median_ms(decode, 20),
+                      "profile": device_profile(decode, 10)}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -56,6 +149,11 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if "--lm" in sys.argv[1:]:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "torch": torch.__version__}), flush=True)
+        profile_lm()
+        return 0
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
