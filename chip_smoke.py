@@ -19,7 +19,13 @@ package) and prints one JSON object per phase:
      golden tenants through the multi-tenant launch; the ternary matmul in
      bf16 and f32 at M in {1, 7, 8, 256, 768} and the LM path's (K, N), a
      ragged N and a K that is not a multiple of 32, every element inside
-     the f32 envelope around the float64 product;
+     the f32 envelope around the float64 product; the packed popcount
+     bit-exact at (1, 1), (256, 17), (1000, 3), (65536, 32) and on the
+     edge words; the WKV-6 scan at BH in {1, 512}, T in {1, 7, 96, 512},
+     dh in {16, 64}, decays from U(0.01, 0.999), with and without an
+     initial state, every element inside the f32 envelope of the float64
+     recurrence, and runs split in two with the state carried across
+     equal to one pass, bit for bit;
   4. `main_path` — the launch counters are zeroed, then each tenant of
      `tests/golden_emit/fleet.json` is loaded on the card and must
      reproduce `tests/golden/<name>.npz` labels; `scores` must equal the
@@ -27,6 +33,10 @@ package) and prints one JSON object per phase:
      through a `max_batch=65536` engine and 512 submitted requests through
      a `max_batch=1024` engine; the five tenants run through one
      `fleet_eval_words` launch.  Every kernel must have launched;
+     `popcount_path` — with its counter zeroed, `ops.packed_popcount`
+     counts the binarized features that fire in each of 65,536 arrhythmia
+     readings (packed one row a reading, 9 words) and must equal the
+     count of the 0/1 matrix;
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
@@ -38,12 +48,29 @@ package) and prints one JSON object per phase:
      and 8 greedy steps on the card (kernel) and on the CPU (plain
      versions): logits agree within `LOGIT_TOL`, tokens agree wherever the
      top-2 margin exceeds it;
+  6b. `rwkv_serving` — rwkv6-7b at full width and depth (32 layers,
+     d_model 4096, 64 heads of 64, vocab 65,536, dense bf16, 7.6 B
+     parameters drawn on the card by `init_params` from seed 0): the scan
+     inputs of layer 0 in a prefill of 8 x 96 tokens and in a decode step
+     are captured and the kernel is held against the plain version on them
+     (the model's own decays; a `kernel_vs_plain` line); then, with the
+     counter zeroed, the `lm_serving` traffic through `ServingEngine`:
+     `rwkv6_scan` must launch 32 x forwards times, every request get its
+     32 tokens and the logits be finite;  `rwkv_cross_device` — the same
+     widths at 2 layers in float32 (every leaf drawn, so `u`, `w0` and the
+     token shifts are not zero), one 16-token prompt and 8 greedy steps on
+     the card and on the CPU, held as `lm_cross_device` is;
   7. `timing` — kernel (CUDA events, median of 25 after warm-up), plain
      version and bound at 1,024 and 65,536 readings for arrhythmia and
      cardio, plus the engine's per-dispatch wall time; `timing_ternary` —
      the ternary-matmul kernel, its plain version, the bound and one
      `torch.matmul` on weights unpacked to bf16 beforehand (`library_ms`,
      a yardstick the port never calls) at each (M, K, N) of the LM path;
+     `timing_rwkv` and `timing_popcount` — kernel, plain version and bound
+     at the path's shapes (WKV: rwkv6-7b's captured prefill, BH 512 x
+     T 96, and decode, T 1 from a state; popcount: 65,536 readings x 9
+     and x 32 words); no single PyTorch call computes either, so their
+     `library_ms` is null;
   8. the `kernels` line, the card's name and power limit, and last
      `{"ok": true, "device": {...}}`.
 
@@ -89,6 +116,11 @@ PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
 # layers that stays far below 1e-3 on logits of order 1.
 LOGIT_TOL = 1e-3
+# WKV-6 envelope: first-order rounding of the recurrence in float32 is at
+# most u * (dh + 2T + 2) times the same recurrence run on absolute values
+# (u = eps/2: dh terms in each y sum, two roundings a token carried in the
+# state); the check allows eps * (dh + 2T + 4), twice that.
+WKV_FLOPS = 7                # per (row, token, i, j): kv, u*kv, S+, r*, +, w*S+
 
 
 def say(phase: str, **kw) -> None:
@@ -171,10 +203,150 @@ def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wkv_bound_ms(BH: int, T: int, dh: int, with_s0: bool
+                 ) -> tuple[float, str]:
+    """Least time for the WKV-6 scan: r, k, v, w, u, s0 read once and y and
+    the final state written once (float32), against 7 flops per (row,
+    token, i, j) at the float32 CUDA-core rate."""
+    n_floats = 5 * BH * T * dh + BH * dh + BH * dh * dh * (2 if with_s0
+                                                            else 1)
+    t_bytes = 4 * n_floats / PEAK_BYTES_PER_S
+    t_ops = WKV_FLOPS * BH * T * dh * dh / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def popcount_bound_ms(B: int, W: int) -> tuple[float, str]:
+    """Least time for per-row popcounts: the words read once and the
+    counts written once, against one count and one add per word."""
+    t_bytes = 4 * (B * W + B) / PEAK_BYTES_PER_S
+    t_ops = 2 * B * W / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def wkv_check(args: tuple, stats: dict) -> None:
+    """The WKV-6 kernel and its plain version on the card, each held to
+    the envelope around the float64 recurrence; folds the case into
+    `stats`."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as WKV
+
+    r, k, v, w, u, s0 = args
+    T, dh = r.shape[1], r.shape[2]
+    got = WKV.rwkv6_scan(*args)
+    plain = WKV.rwkv6_scan_plain(*args)
+    f64 = [None if a is None else a.double() for a in args]
+    exact = WKV.rwkv6_scan_plain(*f64)
+    env = WKV.rwkv6_scan_plain(*[None if a is None else a.abs() for a in f64])
+    gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
+    ratio = plain_ratio = 0.0
+    for g, p, e, m in zip(got, plain, exact, env):
+        bound = gamma * m + 1e-30
+        ratio = max(ratio, float(((g.double() - e).abs() / bound).max()))
+        plain_ratio = max(plain_ratio,
+                          float(((p.double() - e).abs() / bound).max()))
+        stats["max_abs_err"] = max(stats["max_abs_err"],
+                                   float((g - p).abs().max()))
+    torch.cuda.synchronize()
+    stats["cases"] += 1
+    stats["mismatches"] += int(ratio > 1)
+    stats["plain_mismatches"] += int(plain_ratio > 1)
+    stats["max_err_over_envelope"] = max(stats["max_err_over_envelope"],
+                                         ratio)
+
+
+def wkv_vs_plain(dev, rng) -> dict:
+    """The WKV-6 grid of `kernel_vs_plain` on synthetic operands, plus
+    split runs that must equal one pass bit for bit."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as WKV
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    stats = {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
+             "max_err_over_envelope": 0.0, "max_abs_err": 0.0,
+             "split_cases": 0, "split_max_abs_diff": 0.0}
+    for BH in (1, 512):
+        for T in (1, 7, 96, 512):
+            for dh in (16, 64):
+                for with_s0 in (False, True):
+                    r, k, v = (t(rng.standard_normal((BH, T, dh)))
+                               for _ in range(3))
+                    w = t(rng.uniform(0.01, 0.999, (BH, T, dh)))
+                    u = t(rng.normal(0, 0.5, (BH, dh)))
+                    s0 = t(rng.standard_normal((BH, dh, dh))) if with_s0 \
+                        else None
+                    wkv_check((r, k, v, w, u, s0), stats)
+    for BH, T, dh, cut in ((512, 96, 64, 40), (1, 512, 16, 1),
+                           (512, 7, 64, 6)):
+        r, k, v = (t(rng.standard_normal((BH, T, dh))) for _ in range(3))
+        w = t(rng.uniform(0.01, 0.999, (BH, T, dh)))
+        u = t(rng.normal(0, 0.5, (BH, dh)))
+        y, s = WKV.rwkv6_scan(r, k, v, w, u)
+        head = [a[:, :cut].contiguous() for a in (r, k, v, w)]
+        tail = [a[:, cut:].contiguous() for a in (r, k, v, w)]
+        y1, s1 = WKV.rwkv6_scan(*head, u)
+        y2, s2 = WKV.rwkv6_scan(*tail, u, s1)
+        diff = max(float((torch.cat([y1, y2], 1) - y).abs().max()),
+                   float((s2 - s).abs().max()))
+        stats["split_cases"] += 1
+        stats["split_max_abs_diff"] = max(stats["split_max_abs_diff"], diff)
+    torch.cuda.synchronize()
+    return stats
+
+
+def popcount_vs_plain(dev, rng) -> dict:
+    """The popcount kernel against its plain version, bit-exact."""
+    import torch
+
+    from repro_torch.kernels import packed_popcount as PP
+
+    stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+    planes = [rng.integers(0, 2 ** 32, shape, dtype=np.uint64)
+              .astype(np.uint32)
+              for shape in ((1, 1), (256, 17), (1000, 3), (65536, 32))]
+    planes.append(np.array([[0, 0xFFFFFFFF, 1, 0x80000000]], np.uint32))
+    for words in planes:
+        wt = torch.from_numpy(words.view(np.int32)).to(dev)
+        got, want = PP.packed_popcount(wt), PP.packed_popcount_plain(wt)
+        err = int((got.long() - want.long()).abs().max())
+        stats["cases"] += 1
+        stats["mismatches"] += int(err != 0 or got.shape != want.shape)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    edge = int(got[0])
+    torch.cuda.synchronize()
+    if edge != 34:
+        fail(f"packed_popcount: edge words counted {edge}, expected 34")
+    return stats
+
+
 def with_dtypes(tree: dict, defs: dict) -> dict:
     """`tree` with every leaf cast to the dtype of its `ParamDef`."""
     return {k: with_dtypes(v, defs[k]) if isinstance(v, dict)
             else v.to(defs[k].dtype) for k, v in tree.items()}
+
+
+def finite_logits(cfg, params: dict, prompts: list[list[int]]) -> bool:
+    """Whether a prefill of `prompts` (one length) and the decode step
+    after it give finite logits."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    dev = params["embed"]["tokens"].device
+    with torch.inference_mode():
+        hidden, cache = TF.prefill(
+            cfg, params, {"tokens": torch.tensor(prompts, device=dev)}, 256)
+        logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
+        finite = bool(torch.isfinite(logits).all())
+        logits, _ = TF.decode_step(cfg, params, cache,
+                                   torch.argmax(logits, dim=-1),
+                                   len(prompts[0]))
+        return finite and bool(torch.isfinite(logits).all())
 
 
 def greedy_logits(cfg, params, prompt, n_new, TF, torch, forced=None):
@@ -251,7 +423,6 @@ def lm_phases(dev, cfg16) -> int:
 
     from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.models import params as P
-    from repro_torch.models import transformer as TF
     from repro_torch.serve.lm_engine import LMServeStats, Request, \
         ServingEngine
 
@@ -278,14 +449,7 @@ def lm_phases(dev, cfg16) -> int:
     forwards = lm["prefills"] + lm["decode_steps"]
     want_launches = PROJECTIONS_PER_LAYER * cfg16.n_layers * forwards
     peak_bytes = torch.cuda.max_memory_allocated()
-    with torch.inference_mode():
-        batch = {"tokens": torch.tensor(prompts[8:], device=dev)}
-        hidden, cache = TF.prefill(cfg16, engine.params, batch, 256)
-        logits = TF.logits_from_hidden(cfg16, engine.params, hidden[:, -1:])
-        finite = bool(torch.isfinite(logits).all())
-        logits, _ = TF.decode_step(cfg16, engine.params, cache,
-                                   torch.argmax(logits, dim=-1), 96)
-        finite &= bool(torch.isfinite(logits).all())
+    finite = finite_logits(cfg16, engine.params, prompts[8:])
     say("lm_serving", arch=cfg16.name, quant=cfg16.quant,
         n_layers=cfg16.n_layers, d_model=cfg16.d_model, vocab=cfg16.vocab,
         params=P.param_count(cfg16), weights_s=weights_s, requests=len(reqs),
@@ -300,13 +464,26 @@ def lm_phases(dev, cfg16) -> int:
              "forwards)")
     if not finite:
         fail("lm_serving: non-finite logits")
-    del engine, p16, cache, hidden, logits
+    del engine, p16
 
-    prompt = lm_rng.integers(1, cfg32.vocab, 16).tolist()
+    cross_device("lm_cross_device", cfg32, p32,
+                 lm_rng.integers(1, cfg32.vocab, 16).tolist())
+    return tm_launches
+
+
+def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
+    """A float32 model on the card (kernels) against the CPU (plain
+    versions): one prompt and 8 greedy steps, the CPU fed the card's
+    tokens; logits must agree within `LOGIT_TOL` and tokens wherever the
+    top-2 margin exceeds it."""
+    import torch
+
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as TF
+
     card = greedy_logits(cfg32, p32, prompt, 8, TF, torch)
     card_tokens = card.argmax(dim=-1).tolist()
     p_cpu = P.tree_map(lambda a: a.cpu(), p32)
-    del p32
     t0 = time.perf_counter()
     host = greedy_logits(cfg32, p_cpu, prompt, 8, TF, torch,
                          forced=card_tokens)
@@ -315,18 +492,159 @@ def lm_phases(dev, cfg16) -> int:
     top2 = host.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     host_tokens = host.argmax(dim=-1).tolist()
-    say("lm_cross_device", prompt_tokens=len(prompt), steps=len(card_tokens),
-        logit_tol=LOGIT_TOL, max_abs_diff_per_step=diff.tolist(),
-        top2_margin=margin.tolist(), card_tokens=card_tokens,
-        cpu_tokens=host_tokens, cpu_seconds=cpu_s)
+    say(phase, arch=cfg32.name, n_layers=cfg32.n_layers,
+        d_model=cfg32.d_model, prompt_tokens=len(prompt),
+        steps=len(card_tokens), logit_tol=LOGIT_TOL,
+        max_abs_diff_per_step=diff.tolist(), top2_margin=margin.tolist(),
+        card_tokens=card_tokens, cpu_tokens=host_tokens, cpu_seconds=cpu_s)
     if float(diff.max()) > LOGIT_TOL:
-        fail(f"lm_cross_device: logits differ by {float(diff.max()):.3g} > "
+        fail(f"{phase}: logits differ by {float(diff.max()):.3g} > "
              f"{LOGIT_TOL}")
     for step, (a, b, m) in enumerate(zip(card_tokens, host_tokens, margin)):
         if float(m) > LOGIT_TOL and a != b:
-            fail(f"lm_cross_device: step {step} token {a} on the card, "
-                 f"{b} on the CPU")
-    return tm_launches
+            fail(f"{phase}: step {step} token {a} on the card, {b} on the "
+                 "CPU")
+
+
+def rwkv_phases(dev, cfg) -> dict:
+    """`rwkv_serving` (with the check of the kernel on the model's own
+    scan inputs) and `rwkv_cross_device` on `cfg`, a full-width bf16
+    RWKV-6 config; returns the counted `rwkv6_scan` launches, the
+    model-input check's stats and the captured prefill and decode scan
+    inputs for timing."""
+    import torch
+
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as P
+    from repro_torch.serve.lm_engine import LMServeStats, Request, \
+        ServingEngine
+
+    t0 = time.perf_counter()
+    params = P.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    lm_rng = np.random.default_rng(SEED)
+    prompts = [lm_rng.integers(1, cfg.vocab, n).tolist()
+               for n in [32] * 8 + [96] * 8]
+    engine = ServingEngine(cfg, params, max_batch=8, cache_len=256,
+                           device=dev)
+
+    # warm-up, not counted: capture layer 0's scan operands in a prefill
+    # of 8 x 96 tokens and in the decode step after it
+    captured = []
+    real = ops.rwkv6_scan
+
+    def capture(r, k, v, w, u, chunk=32, s0=None):
+        if len(captured) < 2 and (not captured or s0 is not None):
+            captured.append(tuple(None if a is None else a.clone()
+                                  for a in (r, k, v, w, u, s0)))
+        return real(r, k, v, w, u, chunk, s0)
+
+    ops.rwkv6_scan = capture
+    try:
+        engine.run([Request(uid=-1 - i, prompt=pr, max_new_tokens=2)
+                    for i, pr in enumerate(prompts[8:])])
+    finally:
+        ops.rwkv6_scan = real
+    if len(captured) != 2 or captured[0][0].shape[:2] != (8 * cfg.n_heads,
+                                                          96):
+        fail("rwkv_serving: the warm-up did not capture a prefill and a "
+             "decode scan")
+    mstats = {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
+              "max_err_over_envelope": 0.0, "max_abs_err": 0.0}
+    for args in captured:
+        wkv_check(args, mstats)
+    w = captured[0][3]
+    mstats["decay_quantiles"] = torch.quantile(
+        w.flatten()[:: max(1, w.numel() // 1_000_000)],
+        torch.tensor([0.0, 0.01, 0.5, 0.99, 1.0], device=dev)).tolist()
+    say("kernel_vs_plain", rwkv6_scan_model_inputs=mstats,
+        shapes=[list(a[0].shape) for a in captured])
+    if mstats["mismatches"] or mstats["plain_mismatches"]:
+        fail(f"rwkv6_scan on the model's inputs: {mstats['mismatches']} "
+             f"kernel and {mstats['plain_mismatches']} plain cases leave "
+             "the f32 envelope")
+
+    engine.stats = LMServeStats()
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=32)
+            for i, pr in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CW.reset_launches()
+    engine.run(reqs)
+    launches = CW.LAUNCHES["rwkv6_scan"]
+    lm = engine.stats.summary()
+    forwards = lm["prefills"] + lm["decode_steps"]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    finite = finite_logits(cfg, engine.params, prompts[8:])
+    say("rwkv_serving", arch=cfg.name, quant=cfg.quant,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        vocab=cfg.vocab, params=P.param_count(cfg), weights_s=weights_s,
+        requests=len(reqs), new_tokens=[len(r.output) for r in reqs],
+        stats=lm, rwkv6_scan_launches=launches,
+        expected=cfg.n_layers * forwards, logits_finite=finite,
+        max_memory_allocated_bytes=peak_bytes)
+    if any(len(r.output) != 32 for r in reqs):
+        fail("rwkv_serving: a request did not get its 32 tokens")
+    if launches != cfg.n_layers * forwards:
+        fail(f"rwkv_serving: rwkv6_scan launched {launches} times, expected "
+             f"{cfg.n_layers * forwards} ({cfg.n_layers} x {forwards} "
+             "forwards)")
+    if not finite:
+        fail("rwkv_serving: non-finite logits")
+    del engine, params
+
+    cfg32 = cfg.replace(n_layers=2, param_dtype="float32",
+                        compute_dtype="float32")
+    p32 = P.init_params(cfg32, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tm = p32["layers"]["tm"]
+    for name, a in tm.items():       # draw the leaves the init leaves at 0
+        if name.startswith("mu_"):
+            a.uniform_(0, 1, generator=gen)
+        elif name in ("w0", "u"):
+            a.normal_(0, 1 if name == "w0" else 0.5, generator=gen)
+    for name in ("mu_k", "mu_r"):
+        p32["layers"]["cm"][name].uniform_(0, 1, generator=gen)
+    cross_device("rwkv_cross_device", cfg32, p32,
+                  lm_rng.integers(1, cfg32.vocab, 16).tolist())
+    return {"launches": launches, "model_stats": mstats,
+            "captured": captured}
+
+
+def rwkv_popcount_timing(captured: list, pop_words: dict) -> tuple:
+    """Kernel, plain version and bound of the WKV-6 scan on the captured
+    prefill and decode operands, and of the popcount on `pop_words`."""
+    from repro_torch.kernels import packed_popcount as PP
+    from repro_torch.kernels import rwkv6_scan as WKV
+
+    wkv_rows = []
+    for step, args in zip(("prefill", "decode"), captured):
+        BH, T, dh = args[0].shape
+        row = {"step": step, "BH": BH, "T": T, "dh": dh,
+               "initial_state": args[5] is not None}
+        row["ms"] = gpu_ms(lambda: WKV.rwkv6_scan(*args), TIMED_REPS, True)
+        row["plain_ms"] = gpu_ms(lambda: WKV.rwkv6_scan_plain(*args),
+                                 PLAIN_REPS, False)
+        row["bound_ms"], row["bound_by"] = wkv_bound_ms(
+            BH, T, dh, args[5] is not None)
+        row["library_ms"] = None
+        wkv_rows.append(row)
+        say("timing_rwkv", **row)
+    pop_rows = []
+    for name, words in pop_words.items():
+        B, W = words.shape
+        row = {"words": name, "B": B, "W": W}
+        row["ms"] = gpu_ms(lambda: PP.packed_popcount(words), TIMED_REPS,
+                           True)
+        row["plain_ms"] = gpu_ms(lambda: PP.packed_popcount_plain(words),
+                                 PLAIN_REPS, True)
+        row["bound_ms"], row["bound_by"] = popcount_bound_ms(B, W)
+        row["library_ms"] = None
+        pop_rows.append(row)
+        say("timing_popcount", **row)
+    return wkv_rows, pop_rows
 
 
 def ternary_timing(dev) -> list[dict]:
@@ -377,8 +695,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import circuit_sim as CS
     from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import cuda_packed_popcount as CP
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
     from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.kernels import dispatch as D
+    from repro_torch.kernels import ops
     from repro_torch.serve.engine import CircuitServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -393,9 +714,10 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build([CK.SOURCE, CT.SOURCE])   # one nvcc each, together
-    CK._lib()
-    CT._lib()
+    wrappers = (CK, CT, CP, CW)
+    libs = _build.build([m.SOURCE for m in wrappers])  # one nvcc each, together
+    for m in wrappers:
+        m._lib()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for source, lib in libs.items():
@@ -479,7 +801,10 @@ def main() -> int:
     torch.cuda.synchronize()
 
     tstats = ternary_vs_plain(dev, rng)
-    say("kernel_vs_plain", kernels=stats, ternary_matmul=tstats)
+    pstats = popcount_vs_plain(dev, rng)
+    wstats = wkv_vs_plain(dev, rng)
+    say("kernel_vs_plain", kernels=stats, ternary_matmul=tstats,
+        packed_popcount=pstats, rwkv6_scan=wstats)
     for name, s in stats.items():
         if s["mismatches"]:
             fail(f"{name}: {s['mismatches']} of {s['cases']} cases differ "
@@ -490,6 +815,17 @@ def main() -> int:
                  f"{s['plain_mismatches']} plain cases of {s['cases']} leave "
                  f"the f32 envelope (largest err/envelope "
                  f"{s['max_err_over_envelope']:.3f})")
+    if pstats["mismatches"]:
+        fail(f"packed_popcount: {pstats['mismatches']} of {pstats['cases']} "
+             "cases differ from the plain version")
+    if wstats["mismatches"] or wstats["plain_mismatches"]:
+        fail(f"rwkv6_scan: {wstats['mismatches']} kernel and "
+             f"{wstats['plain_mismatches']} plain cases of {wstats['cases']} "
+             f"leave the f32 envelope (largest err/envelope "
+             f"{wstats['max_err_over_envelope']:.3f})")
+    if wstats["split_max_abs_diff"]:
+        fail(f"rwkv6_scan: a split run differs from one pass by "
+             f"{wstats['split_max_abs_diff']:.3g}")
 
     # -- 4. main path, counted ----------------------------------------------
     CK.reset_launches()
@@ -553,9 +889,26 @@ def main() -> int:
         if n <= 0:
             fail(f"the main path never launched {name}")
 
+    # per-reading packing: the readings' bits as rows of 9 words
+    fire = arr.binarize(x_stream[:65536])
+    reading_words = CS.pack_bits32(fire.T.contiguous())
+    CP.reset_launches()
+    counts = ops.packed_popcount(reading_words)
+    pop_launches = CP.LAUNCHES["packed_popcount"]
+    want = fire.sum(dim=1, dtype=torch.int32)
+    say("popcount_path", readings=int(fire.shape[0]),
+        words_per_reading=int(reading_words.shape[1]),
+        launches=pop_launches, counts_equal=bool(torch.equal(counts, want)),
+        mean_firing=float(want.float().mean()))
+    if not torch.equal(counts, want):
+        fail("popcount_path: counts differ from the 0/1 matrix")
+    if pop_launches <= 0:
+        fail("the popcount path never launched packed_popcount")
+
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
         quant="ternary_packed"))
+    rwkv = rwkv_phases(dev, get_config("rwkv6-7b"))
 
     # -- 7. timing ----------------------------------------------------------
     timings = []
@@ -620,6 +973,10 @@ def main() -> int:
         say("timing_fleet", **row)
 
     tm_rows = ternary_timing(dev)
+    wkv_rows, pop_rows = rwkv_popcount_timing(rwkv["captured"], {
+        "arrhythmia readings": reading_words,
+        "random": torch.randint(-2 ** 31, 2 ** 31 - 1, (65536, 32),
+                                dtype=torch.int32, device=dev)})
 
     # -- 8. summary -----------------------------------------------------------
     main_row = next(r for r in timings
@@ -671,6 +1028,28 @@ def main() -> int:
          "cases": sum(s["cases"] for s in tstats.values()),
          "mismatches": sum(s["mismatches"] for s in tstats.values()),
          "shape": "decode w_gate: M 8, K 2048, N 8192, bf16"},
+        {"name": "packed_popcount", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/packed_popcount.cu",
+         "replaces": "src/repro/kernels/packed_popcount.py:16",
+         "launches": pop_launches, "max_abs_err": pstats["max_abs_err"],
+         "ms": pop_rows[0]["ms"], "plain_ms": pop_rows[0]["plain_ms"],
+         "bound_ms": pop_rows[0]["bound_ms"],
+         "bound_by": pop_rows[0]["bound_by"], "library_ms": None,
+         "cases": pstats["cases"], "mismatches": pstats["mismatches"],
+         "shape": "65536 readings x 9 words"},
+        {"name": "rwkv6_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:34",
+         "launches": rwkv["launches"],
+         "max_abs_err": max(wstats["max_abs_err"],
+                            rwkv["model_stats"]["max_abs_err"]),
+         "ms": wkv_rows[0]["ms"], "plain_ms": wkv_rows[0]["plain_ms"],
+         "bound_ms": wkv_rows[0]["bound_ms"],
+         "bound_by": wkv_rows[0]["bound_by"], "library_ms": None,
+         "cases": wstats["cases"] + rwkv["model_stats"]["cases"],
+         "mismatches": wstats["mismatches"]
+         + rwkv["model_stats"]["mismatches"],
+         "shape": "rwkv6-7b prefill: BH 512, T 96, dh 64"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

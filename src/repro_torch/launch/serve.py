@@ -2,13 +2,19 @@
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --no-reduced \
         --quant ternary_packed --requests 8 --max-new 16
+    python -m repro_torch.launch.serve --arch rwkv6-7b --no-reduced \
+        --quant dense
 
-Runs on the current CUDA device unless `--device cpu` is given.  Weights
-come from `models.params.seeded_params` (numpy seed `--seed`): for
-`ternary_packed` each layer's projection is quantized and packed, so the
-codes are not the all-zero init of `init_params`.  `--reduced` (the
-default, as in the reference's `repro.launch.serve`) serves the small
-same-family config; `--no-reduced` serves the full width.
+Runs on the current CUDA device unless `--device cpu` is given.  For
+`ternary_packed` the weights come from `models.params.seeded_params`
+(numpy seed `--seed`), which quantizes and packs each layer's projection,
+so the codes are not the all-zero init of `init_params`; otherwise they
+are the reference's init, drawn by `init_params` on the device from
+`--seed` (a host draw of rwkv6-7b's 7.6 B weights would take minutes).
+`--reduced` (the default, as in the reference's `repro.launch.serve`)
+serves the small same-family config; `--no-reduced` serves the full
+width.  RWKV-6 serves dense only (`--quant dense`) and ignores
+`--cache-len`.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.models.params import param_count, seeded_params
+from repro_torch.models.params import init_params, param_count, \
+    seeded_params
 from repro_torch.serve.lm_engine import Request, ServingEngine
 
 
@@ -44,7 +51,8 @@ def main(argv: list[str] | None = None) -> None:
         cfg = cfg.reduced()
     if args.quant:
         cfg = cfg.replace(quant=args.quant)
-    params = seeded_params(cfg, args.seed, args.device)
+    params = (seeded_params if cfg.quant == "ternary_packed"
+              else init_params)(cfg, args.seed, args.device)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch,
                            cache_len=args.cache_len, device=args.device)
 

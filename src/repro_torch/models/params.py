@@ -1,4 +1,5 @@
-"""Parameter trees of the dense family: definitions, init, and carriers.
+"""Parameter trees of the dense and RWKV-6 families: definitions, init,
+and carriers.
 
 The port of `repro.models.params` for a single device: the same tree,
 shapes and dtypes as the reference (layer-stacked leaves keep their leading
@@ -34,19 +35,31 @@ class ParamDef:
     init_scale: float | None = None
 
 
-def _not_ported(cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
-        f"enc_layers={cfg.enc_layers}) is not ported yet; the port runs the "
-        "dense family — see ROADMAP.md")
+def is_rwkv(cfg: ModelConfig) -> bool:
+    return cfg.family == "ssm" and cfg.ssm is not None \
+        and cfg.ssm.kind == "rwkv6"
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for any family but plain dense."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` for a family the port does not run
+    (it runs plain dense and ssm/rwkv6), and `ValueError` for RWKV-6 with
+    a quantized `quant`: the reference's RWKV block reads dense `w` leaves
+    whatever `cfg.quant` says, so "ternary" would silently serve dense
+    products and "ternary_packed" builds leaves it cannot read."""
+    if is_rwkv(cfg):
+        if cfg.quant != "dense":
+            raise ValueError(
+                f"{cfg.name}: the RWKV-6 block is dense only (the "
+                f"reference ignores quant={cfg.quant!r}); use quant='dense'")
+        return
     if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None \
             or cfg.enc_layers or cfg.frontend is not None \
             or cfg.rope not in ("std", "none"):
-        raise _not_ported(cfg)
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
+            f"ssm={cfg.ssm is not None}, enc_layers={cfg.enc_layers}) is not "
+            "ported yet; the port runs the dense and RWKV-6 families — see "
+            "ROADMAP.md")
 
 
 def _lin(cfg: ModelConfig, K: int, N: int, L: int, bias: bool = False
@@ -74,12 +87,54 @@ def _norm_def(cfg: ModelConfig, L: int | None) -> dict:
     return d
 
 
-def param_defs(cfg: ModelConfig) -> dict:
-    """Full parameter tree of `ParamDef` for a dense-family config."""
-    check_dense(cfg)
-    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _rwkv_defs(cfg: ModelConfig, L: int) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    r = cfg.ssm.lora_rank
     dt = DTYPES[cfg.param_dtype]
+    tm = {
+        "lora_A": ParamDef((L, D, r), dt, "normal", 1.0 / np.sqrt(D)),
+        "w0": ParamDef((L, D), torch.float32, "zeros"),
+        "wA": ParamDef((L, D, r), dt, "normal", 1.0 / np.sqrt(D)),
+        "wB": ParamDef((L, r, D), dt, "normal", 1.0 / np.sqrt(r)),
+        "u": ParamDef((L, D), torch.float32, "zeros"),
+        "gn_scale": ParamDef((L, D), dt, "ones"),
+        "w_r": _lin(cfg, D, D, L),
+        "w_k": _lin(cfg, D, D, L),
+        "w_v": _lin(cfg, D, D, L),
+        "w_g": _lin(cfg, D, D, L),
+        "w_o": _lin(cfg, D, D, L),
+    }
+    for n in ("r", "k", "v", "w", "g"):
+        tm[f"mu_{n}"] = ParamDef((L, D), dt, "zeros")
+        tm[f"lora_B_{n}"] = ParamDef((L, r, D), dt, "normal",
+                                     1.0 / np.sqrt(r))
+    cm = {
+        "mu_k": ParamDef((L, D), dt, "zeros"),
+        "mu_r": ParamDef((L, D), dt, "zeros"),
+        "w_in": _lin(cfg, D, F, L),
+        "w_recv": _lin(cfg, D, D, L),
+        "w_out": _lin(cfg, F, D, L),
+    }
+    return {"tm": tm, "cm": cm}
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """Full parameter tree of `ParamDef` for a dense or RWKV-6 config."""
+    check_ported(cfg)
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    dt = DTYPES[cfg.param_dtype]
+    tree: dict = {
+        "embed": {"tokens": ParamDef((V, D), dt, "normal", 0.02)},
+        "final_norm": _norm_def(cfg, None),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": ParamDef((D, V), dt, "normal",
+                                         1.0 / np.sqrt(D))}
+    layer = {"ln1": _norm_def(cfg, L), "ln2": _norm_def(cfg, L)}
+    if is_rwkv(cfg):
+        tree["layers"] = {**layer, **_rwkv_defs(cfg, L)}
+        return tree
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = {
         "wq": _lin(cfg, D, H * dh, L, cfg.qkv_bias),
         "wk": _lin(cfg, D, K * dh, L, cfg.qkv_bias),
@@ -96,15 +151,7 @@ def param_defs(cfg: ModelConfig) -> dict:
     else:
         mlp = {"w_in": _lin(cfg, D, cfg.d_ff, L, True),
                "w_out": _lin(cfg, cfg.d_ff, D, L, True)}
-    tree: dict = {
-        "embed": {"tokens": ParamDef((V, D), dt, "normal", 0.02)},
-        "final_norm": _norm_def(cfg, None),
-        "layers": {"ln1": _norm_def(cfg, L), "ln2": _norm_def(cfg, L),
-                   "attn": attn, "mlp": mlp},
-    }
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = {"w": ParamDef((D, V), dt, "normal",
-                                         1.0 / np.sqrt(D))}
+    tree["layers"] = {**layer, "attn": attn, "mlp": mlp}
     return tree
 
 
@@ -182,6 +229,7 @@ def seeded_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     the quantized weights, not the reference's all-zero init.  Leaves are
     cast to the config's dtypes.
     """
+    check_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     dense = cfg.replace(quant="dense") if cfg.quant == "ternary_packed" \

@@ -1,11 +1,13 @@
-"""Model assembly for the dense family: forward, prefill and decode.
+"""Model assembly for the dense and RWKV-6 families: forward, prefill and
+decode.
 
-The port of `repro.models.transformer` for dense llama-family models on one
-device.  The reference's `lax.scan` over the layer-stacked parameters is a
-Python loop over the leading L axis here, and the KV cache is updated in
-place (the reference returns a new cache; the port writes the step's K/V
-into the given one, which saves a copy of the whole cache per step).
-Families other than dense raise `NotImplementedError` (see ROADMAP.md).
+The port of `repro.models.transformer` for dense llama-family models and
+RWKV-6 on one device.  The reference's `lax.scan` over the layer-stacked
+parameters is a Python loop over the leading L axis here, and the decode
+cache is updated in place (the reference returns a new cache; the port
+writes the step's K/V, or RWKV's shifts and WKV state, into the given one,
+which saves a copy of the whole cache per step).  Other families raise
+`NotImplementedError` (see ROADMAP.md).
 
 Batch dict keys: tokens (B, S) int64 or int32 [+ positions (B, S)].
 """
@@ -17,10 +19,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (
     apply_rope, embed, layer_norm, linear, rms_norm, rope_cos_sin,
 )
-from repro_torch.models.params import DTYPES, check_dense
+from repro_torch.models.params import DTYPES, check_ported, is_rwkv
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -92,6 +95,16 @@ def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
     return x, kv
 
 
+def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                state: SSM.RWKVState | None = None):
+    h = _norm(cfg, lp["ln1"], x)
+    tm_out, last_tm, wkv = SSM.rwkv6_timemix(lp["tm"], h, cfg.n_heads, state)
+    x = x + tm_out
+    h2 = _norm(cfg, lp["ln2"], x)
+    cm_out, last_cm = SSM.rwkv6_channelmix(lp["cm"], h2, state)
+    return x + cm_out, (last_tm, last_cm, wkv)
+
+
 def _rope_for(cfg: ModelConfig, batch: dict, S: int, device):
     if cfg.rope == "none":
         return None, None
@@ -104,17 +117,25 @@ def _rope_for(cfg: ModelConfig, batch: dict, S: int, device):
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             collect_cache: bool = False):
     """Full-sequence forward.  Returns (hidden (B, S, D), caches | None),
-    caches being each layer's (k, v), each (B, S, K, dh)."""
-    check_dense(cfg)
+    caches being each layer's (k, v), each (B, S, K, dh), or for RWKV-6
+    its (last time-mix input, last channel-mix input, WKV state)."""
+    check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params["embed"]["tokens"], tokens, _cdt(cfg))
-    cos, sin = _rope_for(cfg, batch, S, x.device)
+    if is_rwkv(cfg):
+        def body(xx, lp):
+            return _block_rwkv(cfg, lp, xx)
+    else:
+        cos, sin = _rope_for(cfg, batch, S, x.device)
+
+        def body(xx, lp):
+            return _block_dense(cfg, lp, xx, cos, sin)
     caches = []
     for i in range(cfg.n_layers):
-        x, kv = _block_dense(cfg, _layer(params["layers"], i), x, cos, sin)
+        x, entry = body(x, _layer(params["layers"], i))
         if collect_cache:
-            caches.append(kv)
+            caches.append(entry)
     x = _norm(cfg, params["final_norm"], x)
     return x, (caches if collect_cache else None)
 
@@ -133,22 +154,33 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
 # Decode: cache init + single step
 # ---------------------------------------------------------------------------
 class CacheSpec(NamedTuple):
-    kind: str            # attn (the only kind ported)
-    cache_len: int       # self-attn cache slots (window for SWA)
+    kind: str            # attn | rwkv (the kinds ported)
+    cache_len: int       # self-attn cache slots (window for SWA); 0 for rwkv
 
 
 def cache_spec(cfg: ModelConfig, seq_len: int) -> CacheSpec:
-    check_dense(cfg)
+    check_ported(cfg)
+    if is_rwkv(cfg):
+        return CacheSpec("rwkv", 0)
     eff = min(seq_len, cfg.swa_window) if cfg.swa_window else seq_len
     return CacheSpec("attn", eff)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
                device=None) -> dict:
-    """Zero-filled cache sized for `seq_len` context on `device`."""
+    """Zero-filled cache sized for `seq_len` context on `device` (an RWKV
+    cache holds state, not positions, and ignores `seq_len`)."""
     spec = cache_spec(cfg, seq_len)
-    shape = (cfg.n_layers, batch_size, spec.cache_len, cfg.n_kv_heads,
-             cfg.head_dim)
+    L, B, D = cfg.n_layers, batch_size, cfg.d_model
+    if spec.kind == "rwkv":
+        dh = cfg.head_dim
+        return {"shift_tm": torch.zeros((L, B, D), dtype=_cdt(cfg),
+                                        device=device),
+                "shift_cm": torch.zeros((L, B, D), dtype=_cdt(cfg),
+                                        device=device),
+                "wkv": torch.zeros((L, B, cfg.n_heads, dh, dh),
+                                   dtype=torch.float32, device=device)}
+    shape = (L, B, spec.cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {n: torch.zeros(shape, dtype=_kv_dt(cfg), device=device)
             for n in ("k", "v")}
 
@@ -173,10 +205,18 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """One decode step for the whole batch at absolute position `pos`.
 
     tokens: (B, 1).  Returns (logits (B, 1, V) f32, cache), the cache being
-    the one given, updated in place.
+    the one given, updated in place.  An RWKV-6 step reads no position.
     """
-    check_dense(cfg)
     x = embed(params["embed"]["tokens"], tokens, _cdt(cfg))
+    if cache_spec(cfg, 0).kind == "rwkv":
+        for i in range(cfg.n_layers):
+            st = SSM.RWKVState(cache["shift_tm"][i], cache["shift_cm"][i],
+                               cache["wkv"][i])
+            x, new = _block_rwkv(cfg, _layer(params["layers"], i), x, st)
+            for name, t in zip(SSM.RWKVState._fields, new):
+                cache[name][i] = t
+        x = _norm(cfg, params["final_norm"], x)
+        return logits_from_hidden(cfg, params, x), cache
     dev = x.device
     Sc = int(cache["k"].shape[2])
     if cfg.rope == "std":
@@ -211,6 +251,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     For SWA archs requires S % window == 0 (slot order == position order).
     """
     x, caches = forward(cfg, params, batch, collect_cache=True)
+    if is_rwkv(cfg):
+        return x, {name: torch.stack([c[n] for c in caches]).contiguous()
+                   for n, name in enumerate(SSM.RWKVState._fields)}
     S = x.shape[1]
     Sc = cache_spec(cfg, cache_len).cache_len
 

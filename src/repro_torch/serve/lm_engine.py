@@ -3,7 +3,9 @@
 The port of `repro.serve.lm_engine`.  Requests are bucketed by prompt
 length (the decode step is batch-uniform in position), cut into groups of
 at most `max_batch`, prefilled once per group and decoded greedily until
-`max_new_tokens` or EOS, with the reference's bookkeeping.  Greedy picks
+`max_new_tokens` or EOS, with the reference's bookkeeping.  An RWKV-6
+model keeps recurrent state instead of a KV cache, so `cache_len` does
+not bound it.  Greedy picks
 `torch.argmax`, whose ties go to the first index as `jnp.argmax`'s do.
 
 `LMServeStats` counts prefill tokens, decode steps and their wall times

@@ -16,7 +16,11 @@ from repro_torch.compile.artifact import load_manifest, load_program  # noqa: E4
 from repro_torch.core.ternary import unpack_ternary  # noqa: E402
 from repro_torch.kernels import circuit_sim as CS  # noqa: E402
 from repro_torch.kernels import cuda_circuit_sim as CK  # noqa: E402
+from repro_torch.kernels import cuda_packed_popcount as CP  # noqa: E402
+from repro_torch.kernels import cuda_rwkv6_scan as CW  # noqa: E402
 from repro_torch.kernels import cuda_ternary_matmul as CT  # noqa: E402
+from repro_torch.kernels import packed_popcount as PP  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as WKV  # noqa: E402
 from repro_torch.kernels import ternary_matmul as TM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -112,3 +116,85 @@ def test_lm_engine_projections_run_through_the_kernel(cuda):
     forwards = eng.stats.n_prefills + eng.stats.decode_steps
     assert [len(r.output) for r in reqs] == [4, 4, 4]
     assert CT.LAUNCHES["ternary_matmul"] == 7 * cfg.n_layers * forwards
+
+
+@pytest.mark.parametrize("B,W", [(1, 1), (256, 17), (1000, 3), (65536, 32),
+                                 (7, 0), (3, 100)])
+def test_packed_popcount_kernel_bit_exact(cuda, B, W):
+    rng = np.random.default_rng(B * 100 + W)
+    words = rng.integers(0, 2 ** 32, (B, W), dtype=np.uint64) \
+        .astype(np.uint32)
+    wt = torch.from_numpy(words.view(np.int32)).to(cuda)
+    before = CP.LAUNCHES["packed_popcount"]
+    got = PP.packed_popcount(wt)
+    assert CP.LAUNCHES["packed_popcount"] == before + 1
+    torch.testing.assert_close(got, PP.packed_popcount_plain(wt), rtol=0,
+                               atol=0)
+    edge = torch.from_numpy(np.array([[0, 0xFFFFFFFF, 1, 0x80000000]],
+                                     np.uint32).view(np.int32)).to(cuda)
+    assert PP.packed_popcount(edge).tolist() == [34]
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("BH,T,dh", [(1, 1, 16), (3, 7, 16), (512, 96, 64),
+                                     (512, 1, 64), (2, 512, 64),
+                                     (5, 33, 16)])
+def test_rwkv6_scan_kernel_inside_f32_envelope(cuda, BH, T, dh, with_s0):
+    """Kernel and plain version on the card, each inside the envelope
+    eps * (dh + 2T + 4) * |recurrence on absolute values| of the float64
+    recurrence (first-order float32 rounding of the dh-term sums and of
+    the state carried over T tokens, doubled), at decays U(0.01, 0.999)."""
+    rng = np.random.default_rng(BH * T + dh)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    r, k, v = (t(rng.standard_normal((BH, T, dh))) for _ in range(3))
+    args = (r, k, v, t(rng.uniform(0.01, 0.999, (BH, T, dh))),
+            t(rng.normal(0, 0.5, (BH, dh))),
+            t(rng.standard_normal((BH, dh, dh))) if with_s0 else None)
+    before = CW.LAUNCHES["rwkv6_scan"]
+    got = WKV.rwkv6_scan(*args)
+    assert CW.LAUNCHES["rwkv6_scan"] == before + 1
+    plain = WKV.rwkv6_scan_plain(*args)
+    f64 = [None if a is None else a.double() for a in args]
+    exact = WKV.rwkv6_scan_plain(*f64)
+    env = WKV.rwkv6_scan_plain(*[None if a is None else a.abs()
+                                 for a in f64])
+    gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
+    for g, p, e, m in zip(got, plain, exact, env):
+        assert ((g.double() - e).abs() <= gamma * m).all()
+        assert ((p.double() - e).abs() <= gamma * m).all()
+
+
+def test_rwkv6_scan_kernel_split_equals_one_pass(cuda):
+    rng = np.random.default_rng(11)
+    BH, T, dh, cut = 512, 96, 64, 40
+    r, k, v, w = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        *(rng.standard_normal((BH, T, dh)) for _ in range(3)),
+        rng.uniform(0.01, 0.999, (BH, T, dh))))
+    u = torch.from_numpy(rng.normal(0, 0.5, (BH, dh)).astype(np.float32)) \
+        .to(cuda)
+    y, s = WKV.rwkv6_scan(r, k, v, w, u)
+    y1, s1 = WKV.rwkv6_scan(*(a[:, :cut].contiguous() for a in (r, k, v, w)),
+                            u)
+    y2, s2 = WKV.rwkv6_scan(*(a[:, cut:].contiguous() for a in (r, k, v, w)),
+                            u, s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(s2, s)
+
+
+def test_rwkv_engine_scans_run_through_the_kernel(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.lm_engine import Request, ServingEngine
+
+    cfg = get_config("rwkv6-7b").reduced()
+    eng = ServingEngine(cfg, init_params(cfg, 0, cuda), max_batch=2,
+                        cache_len=32, device=cuda)
+    CW.reset_launches()
+    reqs = eng.run([Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4)
+                    for i in range(3)])
+    forwards = eng.stats.n_prefills + eng.stats.decode_steps
+    assert [len(r.output) for r in reqs] == [4, 4, 4]
+    assert CW.LAUNCHES["rwkv6_scan"] == cfg.n_layers * forwards

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of `repro`, no silent CPU.
 
-* Importing `repro_torch`, serving a committed bundle and running one
-  reduced LM decode step load neither `jax` nor any `repro` module
-  (checked in a fresh interpreter).
+* Importing `repro_torch`, serving a committed bundle, running one
+  reduced LM decode step, serving a reduced RWKV-6 model and a packed
+  popcount load neither `jax` nor any `repro` module (checked in a fresh
+  interpreter).
 * No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
   calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
@@ -22,7 +23,7 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.compile import artifact as A  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import dispatch as D  # noqa: E402
-from repro_torch.models.params import seeded_params  # noqa: E402
+from repro_torch.models.params import init_params, seeded_params  # noqa: E402,E501
 from repro_torch.serve.lm_engine import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,6 +64,13 @@ logits, _ = TF.decode_step(cfg, params, cache, torch.tensor([[3]]), 0)
 ok &= bool(torch.isfinite(logits).all())
 ok &= len(ServingEngine(cfg, params, 1, 8, device="cpu").run(
     [Request(0, [1, 2], 2)])[0].output) == 2
+from repro_torch.models.params import init_params
+rcfg = get_config("rwkv6-7b").reduced()
+ok &= len(ServingEngine(rcfg, init_params(rcfg, 0, "cpu"), 1, 8,
+                        device="cpu").run([Request(0, [1, 2], 2)])[0]
+          .output) == 2
+words = torch.tensor([[1, -1]], dtype=torch.int32)
+ok &= ops.packed_popcount(words).tolist() == [33]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(json.dumps({{"ok": ok, "bad": bad}}))
@@ -100,4 +108,6 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         seeded_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(get_config("rwkv6-7b").reduced())
     assert resolve_device("cpu") == torch.device("cpu")

@@ -3,6 +3,7 @@
 
     python3 tools/chip_profile.py          # compiled classifiers
     python3 tools/chip_profile.py --lm     # llama3.2-1b, ternary_packed
+    python3 tools/chip_profile.py --lm --arch rwkv6-7b   # dense bf16
 
 Loads the arrhythmia and cardio tenants of `tests/golden_emit/` on the
 current CUDA device and, at 1,024 and 65,536 readings a dispatch, prints
@@ -19,12 +20,14 @@ one JSON line each with:
     wall time, and the five largest device-side entries.
 
 With `--lm` it serves llama3.2-1b at full width (bf16, 2-bit packed
-ternary projections, weights from numpy seed 0) and prints one JSON line
-each for a prefill of 8 x 96 prompt tokens and for decode steps at batch 8
-(positions 96 onwards): the unprofiled median host-clock time of the
-step (ending with the tokens on the host, as the engine's), and under
-`torch.profiler` the device busy share and the largest device-side
-entries, with the ternary-matmul kernel's share of the busy time.
+ternary projections, weights from numpy seed 0), or with `--arch
+rwkv6-7b` RWKV-6 at full width (dense bf16, the reference's init drawn on
+the card from seed 0), and prints one JSON line each for a prefill of
+8 x 96 prompt tokens and for decode steps at batch 8 (positions 96
+onwards): the unprofiled median host-clock time of the step (ending with
+the tokens on the host, as the engine's), and under `torch.profiler` the
+device busy share and the largest device-side entries, with each
+hand-written kernel's share of the busy time.
 
 The profiler adds its own host overhead to the wall time, so the busy
 share it reports is a lower bound.  Exits non-zero without a CUDA device.
@@ -42,6 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REPS = 15
 PROFILED_DISPATCHES = 10
 PROFILER_OWN = {"Activity Buffer Request"}   # the profiler's own bookkeeping
+KERNELS = ("ternary_matmul_kernel", "rwkv6_scan_kernel")
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -61,7 +65,7 @@ def median_ms(fn, reps: int = REPS) -> float:
 def device_profile(fn, reps: int) -> dict:
     """`torch.profiler` over `reps` calls of `fn`: wall time, device busy
     time and share, the eight largest device-side entries, and the share
-    of the busy time spent in the ternary-matmul kernel."""
+    of the busy time spent in each hand-written kernel of `KERNELS`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -82,8 +86,6 @@ def device_profile(fn, reps: int) -> dict:
               and e.key not in PROFILER_OWN
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    ternary_us = sum(e.self_device_time_total for e in events
-                     if "ternary_matmul_kernel" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return {
         "calls": reps,
@@ -91,26 +93,31 @@ def device_profile(fn, reps: int) -> dict:
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "ternary_matmul_share_of_busy": ternary_us / busy_us if busy_us
-        else 0.0,
+        "kernel_share_of_busy": {
+            k: sum(e.self_device_time_total for e in events if k in e.key)
+            / busy_us if busy_us else 0.0 for k in KERNELS},
         "top": [{"name": e.key[:90],
                  "device_ms": e.self_device_time_total / 1e3,
                  "count": e.count} for e in top],
     }
 
 
-def profile_lm() -> None:
-    """Prefill and decode of llama3.2-1b (ternary_packed, bf16)."""
+def profile_lm(arch: str) -> None:
+    """Prefill and decode of llama3.2-1b (ternary_packed, bf16) or
+    rwkv6-7b (dense, bf16)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
-    from repro_torch.models.params import seeded_params
+    from repro_torch.models.params import init_params, seeded_params
     from repro_torch.serve.lm_engine import ServingEngine
 
-    cfg = get_config("llama3.2-1b").replace(quant="ternary_packed")
-    engine = ServingEngine(cfg, seeded_params(cfg, 0), max_batch=8,
-                           cache_len=256)
+    cfg = get_config(arch)
+    if arch == "llama3.2-1b":
+        cfg = cfg.replace(quant="ternary_packed")
+    params = (seeded_params if cfg.quant == "ternary_packed"
+              else init_params)(cfg, 0)
+    engine = ServingEngine(cfg, params, max_batch=8, cache_len=256)
     params = engine.params
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (8, 96))).to(
@@ -149,10 +156,13 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    if "--lm" in sys.argv[1:]:
+    args = sys.argv[1:]
+    if "--lm" in args:
+        arch = args[args.index("--arch") + 1] if "--arch" in args \
+            else "llama3.2-1b"
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "torch": torch.__version__}), flush=True)
-        profile_lm()
+        profile_lm(arch)
         return 0
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
