@@ -11,15 +11,20 @@ package) and prints one JSON object per phase:
      result;
   2. `build` — compiles the CUDA sources under
      `src/repro_torch/kernels/csrc/` with nvcc and reports the seconds and
-     each kernel's registers/spills;
+     each kernel's registers/spills; `sass` — the `HMMA` / `HGMMA`
+     instructions `cuobjdump -sass` finds in each kernel of the ternary
+     library (the tensor-core kernel must have some), or that cuobjdump is
+     missing;
   3. `kernel_vs_plain` — every CUDA kernel against its plain PyTorch
      version on the card: the gate-walk kernels bit-exact on seeded random
      populations (P up to 64, G up to 4,096, shared and per-individual
      planes, W in {1, 33, 2048}), gateless plans, W == 0, and the five
      golden tenants through the multi-tenant launch; the ternary matmul in
-     bf16 and f32 at M in {1, 7, 8, 256, 768} and the LM path's (K, N), a
-     ragged N and a K that is not a multiple of 32, every element inside
-     the f32 envelope around the float64 product; the packed popcount
+     bf16 and f32 at M in {1, 7, 8, 9, 16, 64, 65, 256, 768} and (K, N)
+     in the LM path's and K {36, 2048, 8192} x N {130, 200, 512, 8192},
+     so every variant (split-K, tensor cores, CUDA cores) meets ragged
+     edges, every element inside the f32 envelope around the float64
+     product and each case launched twice bit-identical; the packed popcount
      bit-exact at (1, 1), (256, 17), (1000, 3), (65536, 32) and on the
      edge words; the WKV-6 scan at BH in {1, 512}, T in {1, 7, 96, 512},
      dh in {16, 64}, decays from U(0.01, 0.999), with and without an
@@ -41,9 +46,11 @@ package) and prints one JSON object per phase:
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
      32 new tokens each) through `ServingEngine(max_batch=8,
-     cache_len=256)`.  The ternary-matmul counter is zeroed just before
-     and must read 7 projections x 16 layers x forwards just after; every
-     request must get its 32 tokens and the logits must be finite;
+     cache_len=256)`.  The ternary-matmul counters are zeroed just before
+     and must read 7 projections x 16 layers x forwards just after, every
+     decode launch through the split-K variant and every prefill launch
+     through the tensor-core variant; every request must get its 32 tokens
+     and the logits must be finite;
   6. `lm_cross_device` — the same weights in float32, one 16-token prompt
      and 8 greedy steps on the card (kernel) and on the CPU (plain
      versions): logits agree within `LOGIT_TOL`, tokens agree wherever the
@@ -65,14 +72,17 @@ package) and prints one JSON object per phase:
      cardio, plus the engine's per-dispatch wall time; `timing_ternary` —
      the ternary-matmul kernel, its plain version, the bound and one
      `torch.matmul` on weights unpacked to bf16 beforehand (`library_ms`,
-     a yardstick the port never calls) at each (M, K, N) of the LM path;
+     a yardstick the port never calls) at each (K, N) of the LM path and
+     M in {1, 8, 256, 768}, with the variant, K splits and tile the plan
+     picks;
      `timing_rwkv` and `timing_popcount` — kernel, plain version and bound
      at the path's shapes (WKV: rwkv6-7b's captured prefill, BH 512 x
      T 96, and decode, T 1 from a state; popcount: 65,536 readings x 9
      and x 32 words); no single PyTorch call computes either, so their
      `library_ms` is null;
-  8. the `kernels` line, the card's name and power limit, and last
-     `{"ok": true, "device": {...}}`.
+  8. the `kernels` line (the ternary matmul's entry at decode w_gate,
+     with a `prefill` field at M = 768 and its launches by variant), the
+     card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Float32 products on the card run in full float32: TF32 is switched off
 (`torch.backends.cuda.matmul.allow_tf32 = False`, and the same for cuDNN)
@@ -110,7 +120,14 @@ SEED = 0
 # wk/wv, w_gate/w_up and w_down, at decode (M = batch 8) and at prefill
 # (M = 8 x 96 prompt tokens).
 LM_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
-LM_M = (8, 768)
+# Timed M: one row, decode (batch 8), and the prefills of the 8 x 32 and
+# 8 x 96 prompt groups.
+LM_M = (1, 8, 256, 768)
+# Checked shapes: across the plan's thresholds (split-K up to M 8, K
+# splits, tensor-core tiles of 64 to 128 rows) with ragged edges.
+TM_CHECK_M = (1, 7, 8, 9, 16, 64, 65, 256, 768)
+TM_CHECK_KN = tuple(dict.fromkeys(LM_KN + tuple(
+    (K, N) for K in (36, 2048, 8192) for N in (130, 200, 512, 8192))))
 PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # Card (kernel) against CPU (plain versions) in float32 at full width:
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
@@ -370,31 +387,41 @@ def greedy_logits(cfg, params, prompt, n_new, TF, torch, forced=None):
 
 
 def ternary_vs_plain(dev, rng) -> dict:
-    """The ternary-matmul kernel and its plain version on the card against
-    the float64 product: every element inside the f32 envelope
+    """The ternary-matmul kernels and their plain version on the card
+    against the float64 product: every element inside the f32 envelope
     eps * sqrt(K) * (|x| @ |w|) * |scale| + 1e-6 (both sum in f32, in
-    different orders).  Bytes are drawn from all 256 values, so code 0b11
-    occurs.  Returns per-dtype counts."""
+    different orders), at M in `TM_CHECK_M` and (K, N) in `TM_CHECK_KN`,
+    so every shape crosses the plan's thresholds and ragged edges; each
+    case launched twice must give bit-identical results.  Bytes are drawn
+    from all 256 values, so code 0b11 occurs.  Returns per-dtype counts,
+    with per-variant counts under `variants`."""
     import torch
 
     from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.kernels import ternary_matmul as TM
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     tstats = {dt: {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
-                   "max_err_over_envelope": 0.0, "max_abs_err": 0.0}
+                   "not_bit_identical": 0, "max_err_over_envelope": 0.0,
+                   "max_abs_err": 0.0,
+                   "variants": {v: {"cases": 0, "mismatches": 0,
+                                    "not_bit_identical": 0,
+                                    "max_err_over_envelope": 0.0}
+                                for v in CT.VARIANTS}}
               for dt in ("bfloat16", "float32")}
     eps32 = float(np.finfo(np.float32).eps)
     for dt in (torch.bfloat16, torch.float32):
         s = tstats[str(dt).removeprefix("torch.")]
-        for M in (1, 7, 8, 256, 768):
-            for K, N in LM_KN + ((2048, 200), (36, 130)):
+        for M in TM_CHECK_M:
+            for K, N in TM_CHECK_KN:
                 x = t(rng.standard_normal((M, K), dtype=np.float32)).to(dt)
                 w2 = t(rng.integers(-128, 128, (K // 4, N)).astype(np.int8))
                 sc = t(np.abs(rng.normal(1, 0.1, (1, N))).astype(np.float32))
                 got = TM.ternary_matmul(x, w2, sc)
+                again = TM.ternary_matmul(x, w2, sc)
                 plain = TM.ternary_matmul_plain(x, w2, sc)
                 x64, s64 = x.double(), sc.double()
                 w64 = unpack_ternary(w2, torch.float64)
@@ -402,12 +429,16 @@ def ternary_vs_plain(dev, rng) -> dict:
                 bound = eps32 * K ** 0.5 * (
                     (x64.abs() @ w64.abs()) * s64.abs()) + 1e-6
                 ratio = float(((got.double() - exact).abs() / bound).max())
-                s["cases"] += 1
-                s["mismatches"] += int(ratio > 1)
+                same = bool(torch.equal(got, again))
+                v = s["variants"][CT.plan(M, K, N, dt).variant]
+                for d in (s, v):
+                    d["cases"] += 1
+                    d["mismatches"] += int(ratio > 1)
+                    d["not_bit_identical"] += int(not same)
+                    d["max_err_over_envelope"] = max(
+                        d["max_err_over_envelope"], ratio)
                 s["plain_mismatches"] += int(
                     ((plain.double() - exact).abs() > bound).any())
-                s["max_err_over_envelope"] = max(
-                    s["max_err_over_envelope"], ratio)
                 s["max_abs_err"] = max(s["max_abs_err"], float(
                     (got - plain).abs().max()))
     if dev.type == "cuda":
@@ -415,10 +446,34 @@ def ternary_vs_plain(dev, rng) -> dict:
     return tstats
 
 
-def lm_phases(dev, cfg16) -> int:
+def sass_tensor_ops(lib: Path) -> dict:
+    """`HMMA` / `HGMMA` instructions per kernel in the built library, from
+    `cuobjdump -sass`; `{"cuobjdump": "missing"}` without the tool."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"cuobjdump": "missing"}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[name][op] += 1
+                    break
+    return {"cuobjdump": tool, "kernels": counts}
+
+
+def lm_phases(dev, cfg16) -> dict:
     """`lm_serving` and `lm_cross_device` on config `cfg16` (a bf16
     ternary_packed config); returns the ternary-matmul launches of the
-    counted serving run."""
+    counted serving run, in total and by variant."""
     import torch
 
     from repro_torch.kernels import cuda_ternary_matmul as CT
@@ -445,9 +500,15 @@ def lm_phases(dev, cfg16) -> int:
     CT.reset_launches()
     engine.run(reqs)
     tm_launches = CT.LAUNCHES["ternary_matmul"]
+    by_variant = dict(CT.VARIANT_LAUNCHES)
     lm = engine.stats.summary()
     forwards = lm["prefills"] + lm["decode_steps"]
-    want_launches = PROJECTIONS_PER_LAYER * cfg16.n_layers * forwards
+    per_forward = PROJECTIONS_PER_LAYER * cfg16.n_layers
+    want_launches = per_forward * forwards
+    # decode steps (batch 8) run split-K, bf16 prefills the tensor cores
+    want_variants = {"split_k": per_forward * lm["decode_steps"],
+                     "tensor_core": per_forward * lm["prefills"],
+                     "cuda_core": 0}
     peak_bytes = torch.cuda.max_memory_allocated()
     finite = finite_logits(cfg16, engine.params, prompts[8:])
     say("lm_serving", arch=cfg16.name, quant=cfg16.quant,
@@ -455,6 +516,7 @@ def lm_phases(dev, cfg16) -> int:
         params=P.param_count(cfg16), weights_s=weights_s, requests=len(reqs),
         new_tokens=[len(r.output) for r in reqs], stats=lm,
         ternary_matmul_launches=tm_launches, expected=want_launches,
+        launches_by_variant=by_variant, expected_by_variant=want_variants,
         logits_finite=finite, max_memory_allocated_bytes=peak_bytes)
     if any(len(r.output) != 32 for r in reqs):
         fail("lm_serving: a request did not get its 32 tokens")
@@ -462,13 +524,17 @@ def lm_phases(dev, cfg16) -> int:
         fail(f"lm_serving: ternary_matmul launched {tm_launches} times, "
              f"expected {want_launches} (7 x {cfg16.n_layers} x {forwards} "
              "forwards)")
+    if by_variant != want_variants:
+        fail(f"lm_serving: ternary_matmul launches by variant {by_variant}, "
+             f"expected {want_variants} (decode split-K, prefill tensor "
+             "cores)")
     if not finite:
         fail("lm_serving: non-finite logits")
     del engine, p16
 
     cross_device("lm_cross_device", cfg32, p32,
                  lm_rng.integers(1, cfg32.vocab, 16).tolist())
-    return tm_launches
+    return {"launches": tm_launches, "by_variant": by_variant}
 
 
 def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
@@ -650,21 +716,26 @@ def rwkv_popcount_timing(captured: list, pop_words: dict) -> tuple:
 def ternary_timing(dev) -> list[dict]:
     """Kernel, plain version, bound and `library_ms` (one torch.matmul on
     weights unpacked to bf16 outside the timed region; a yardstick the port
-    never calls) at each (M, K, N) of the LM path, x in bf16."""
+    never calls) at each (M, K, N) of the LM path, x in bf16, with the
+    variant, K splits and tile the plan picks."""
     import torch
 
     from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.kernels import ternary_matmul as TM
 
     rows = []
     for M in LM_M:
         for K, N in LM_KN:
+            p = CT.plan(M, K, N, torch.bfloat16)
             x = torch.randn(M, K, device=dev, dtype=torch.bfloat16)
             w2 = torch.randint(-128, 128, (K // 4, N), device=dev,
                                dtype=torch.int8)
             sc = torch.rand(1, N, device=dev) + 0.5
             w_dense = unpack_ternary(w2, torch.bfloat16)
-            row = {"M": M, "K": K, "N": N, "x": "bfloat16"}
+            row = {"M": M, "K": K, "N": N, "x": "bfloat16",
+                   "variant": p.variant, "splits": p.splits,
+                   "tile": list(p.tile), "blocks": p.blocks}
             row["ms"] = gpu_ms(lambda: TM.ternary_matmul(x, w2, sc),
                                TIMED_REPS, True)
             row["plain_ms"] = gpu_ms(
@@ -728,6 +799,12 @@ def main() -> int:
     say("build", seconds=round(build_s, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
         ptxas=ptxas)
+    sass = sass_tensor_ops(libs[CT.SOURCE])
+    say("sass", library=str(libs[CT.SOURCE].relative_to(ROOT)), **sass)
+    if "kernels" in sass and not any(
+            c["HMMA"] + c["HGMMA"] for k, c in sass["kernels"].items()
+            if "ternary_mma_kernel" in k):
+        fail("sass: no HMMA or HGMMA in ternary_mma_kernel")
 
     # -- 3. every kernel against its plain version on the card -------------
     def t(a):
@@ -815,6 +892,9 @@ def main() -> int:
                  f"{s['plain_mismatches']} plain cases of {s['cases']} leave "
                  f"the f32 envelope (largest err/envelope "
                  f"{s['max_err_over_envelope']:.3f})")
+        if s["not_bit_identical"]:
+            fail(f"ternary_matmul {dt}: {s['not_bit_identical']} cases differ "
+                 f"between two launches ({s['variants']})")
     if pstats["mismatches"]:
         fail(f"packed_popcount: {pstats['mismatches']} of {pstats['cases']} "
              "cases differ from the plain version")
@@ -981,8 +1061,9 @@ def main() -> int:
     # -- 8. summary -----------------------------------------------------------
     main_row = next(r for r in timings
                     if r["tenant"] == "arrhythmia" and r["readings"] == 65536)
-    tm_main = next(r for r in tm_rows
-                   if (r["M"], r["K"], r["N"]) == (8, 2048, 8192))
+    tm_main, tm_prefill = (next(r for r in tm_rows
+                                if (r["M"], r["K"], r["N"]) == (M, 2048, 8192))
+                           for M in (8, 768))
     src = "src/repro_torch/kernels/csrc/circuit_sim.cu"
     kernels = [
         {"name": "fused_eval_uint", "route": "cuda", "source": src,
@@ -1020,14 +1101,19 @@ def main() -> int:
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
-         "launches": tm_launches,
+         "launches": tm_launches["launches"],
+         "launches_by_variant": tm_launches["by_variant"],
          "max_abs_err": max(s["max_abs_err"] for s in tstats.values()),
          "ms": tm_main["ms"], "plain_ms": tm_main["plain_ms"],
          "bound_ms": tm_main["bound_ms"], "bound_by": tm_main["bound_by"],
          "library_ms": tm_main["library_ms"],
          "cases": sum(s["cases"] for s in tstats.values()),
          "mismatches": sum(s["mismatches"] for s in tstats.values()),
-         "shape": "decode w_gate: M 8, K 2048, N 8192, bf16"},
+         "shape": "decode w_gate: M 8, K 2048, N 8192, bf16, split_k",
+         "prefill": {k: tm_prefill[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "variant", "splits", "tile")}
+         | {"shape": "prefill w_gate: M 768, K 2048, N 8192, bf16"}},
         {"name": "packed_popcount", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_popcount.cu",
          "replaces": "src/repro/kernels/packed_popcount.py:16",

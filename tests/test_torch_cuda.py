@@ -118,6 +118,99 @@ def test_lm_engine_projections_run_through_the_kernel(cuda):
     assert CT.LAUNCHES["ternary_matmul"] == 7 * cfg.n_layers * forwards
 
 
+def _ternary_operands(dev, M, K, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)) \
+        .to(dev).to(dtype)
+    w2 = torch.from_numpy(
+        rng.integers(-128, 128, (K // 4, N)).astype(np.int8)).to(dev)
+    sc = torch.from_numpy(
+        np.abs(rng.normal(1, 0.1, (1, N))).astype(np.float32)).to(dev)
+    return x, w2, sc
+
+
+def _inside_f32_envelope(got, x, w2, sc) -> bool:
+    K = x.shape[1]
+    x64, w64, s64 = x.double(), unpack_ternary(w2, torch.float64), sc.double()
+    exact = (x64 @ w64) * s64
+    bound = float(np.finfo(np.float32).eps) * K ** 0.5 * (
+        (x64.abs() @ w64.abs()) * s64.abs()) + 1e-6
+    return bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [36, 2048, 8192])
+@pytest.mark.parametrize("N", [130, 200, 512, 8192])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 16, 64, 65, 256, 768])
+def test_ternary_matmul_each_variant_inside_f32_envelope(cuda, M, K, N,
+                                                         dtype):
+    """Shapes across the plan's thresholds (M 8 | 9, one or many K splits,
+    BM 64 | 128) with ragged M, N and K edges, each held to the f32
+    envelope by the variant the plan routes it to."""
+    x, w2, sc = _ternary_operands(cuda, M, K, N, dtype, M * K + N)
+    variant = CT.plan(M, K, N, dtype).variant
+    before = dict(CT.VARIANT_LAUNCHES)
+    got = TM.ternary_matmul(x, w2, sc)
+    assert CT.VARIANT_LAUNCHES[variant] == before[variant] + 1
+    assert _inside_f32_envelope(got, x, w2, sc)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,variant", [
+    (8, 2048, 512, torch.bfloat16, "split_k"),
+    (1, 8192, 200, torch.float32, "split_k"),
+    (8, 36, 130, torch.float32, "split_k"),
+    (768, 2048, 512, torch.bfloat16, "tensor_core"),
+    (256, 2048, 8192, torch.bfloat16, "tensor_core"),
+    (65, 36, 130, torch.bfloat16, "tensor_core"),
+    (65, 36, 130, torch.float32, "cuda_core"),
+    (768, 8192, 2048, torch.float32, "cuda_core")])
+def test_ternary_matmul_two_launches_bit_identical(cuda, M, K, N, dtype,
+                                                   variant):
+    assert CT.plan(M, K, N, dtype).variant == variant
+    x, w2, sc = _ternary_operands(cuda, M, K, N, dtype, 7)
+    assert torch.equal(TM.ternary_matmul(x, w2, sc),
+                       TM.ternary_matmul(x, w2, sc))
+
+
+def test_unaligned_bf16_x_runs_the_cuda_core_kernel(cuda):
+    M, K, N = 64, 2048, 512
+    x, w2, sc = _ternary_operands(cuda, M, K, N, torch.bfloat16, 3)
+    buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device=cuda)
+    xu = buf[1:].view(M, K)
+    xu.copy_(x)
+    before = CT.VARIANT_LAUNCHES["cuda_core"]
+    got = TM.ternary_matmul(xu, w2, sc)
+    assert CT.VARIANT_LAUNCHES["cuda_core"] == before + 1
+    assert _inside_f32_envelope(got, x, w2, sc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_engine_launches_counted_by_variant(cuda, dtype):
+    """Decode steps (M <= 8) run split-K; prefills of 2 x 12 tokens run the
+    tensor cores in bf16 and the CUDA-core kernel in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import seeded_params
+    from repro_torch.serve.lm_engine import Request, ServingEngine
+
+    cfg = get_config("llama3.2-1b").reduced().replace(
+        quant="ternary_packed", param_dtype=dtype, compute_dtype=dtype)
+    eng = ServingEngine(cfg, seeded_params(cfg, 0, cuda), max_batch=2,
+                        cache_len=32, device=cuda)
+    CT.reset_launches()
+    reqs = eng.run([Request(uid=i, prompt=list(range(1 + i, 13 + i)),
+                            max_new_tokens=4) for i in range(4)])
+    per_forward = 7 * cfg.n_layers
+    st = eng.stats
+    assert [len(r.output) for r in reqs] == [4] * 4
+    prefill = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    assert CT.VARIANT_LAUNCHES == {
+        "split_k": per_forward * st.decode_steps,
+        prefill: per_forward * st.n_prefills,
+        ({"tensor_core", "cuda_core"} - {prefill}).pop(): 0}
+    assert CT.LAUNCHES["ternary_matmul"] == per_forward * (
+        st.decode_steps + st.n_prefills)
+
+
 @pytest.mark.parametrize("B,W", [(1, 1), (256, 17), (1000, 3), (65536, 32),
                                  (7, 0), (3, 100)])
 def test_packed_popcount_kernel_bit_exact(cuda, B, W):

@@ -45,7 +45,10 @@ ROOT = Path(__file__).resolve().parents[1]
 REPS = 15
 PROFILED_DISPATCHES = 10
 PROFILER_OWN = {"Activity Buffer Request"}   # the profiler's own bookkeeping
-KERNELS = ("ternary_matmul_kernel", "rwkv6_scan_kernel")
+# the ternary matmul's three designs (split-K decode, tensor-core prefill,
+# CUDA-core f32) and the WKV-6 scan
+KERNELS = ("ternary_splitk_kernel", "ternary_mma_kernel",
+           "ternary_matmul_kernel", "rwkv6_scan_kernel")
 
 
 def median_ms(fn, reps: int = REPS) -> float:
