@@ -11,15 +11,27 @@ package) and prints one JSON object per phase:
      result;
   2. `build` — compiles the CUDA sources under
      `src/repro_torch/kernels/csrc/` with nvcc and reports the seconds and
-     each kernel's registers/spills; `sass` — the `HMMA` / `HGMMA`
-     instructions `cuobjdump -sass` finds in each kernel of the ternary
-     library (the tensor-core kernel must have some), or that cuobjdump is
-     missing;
+     each kernel's registers/spills, and for the gate walks each kernel's
+     registers and static shared memory from `-Xptxas -v` (the level
+     walk's plane is dynamic, up to 227 KB, sized per launch); `sass` —
+     the `HMMA` / `HGMMA` instructions `cuobjdump -sass` finds in each
+     kernel of the ternary library (the tensor-core kernel must have
+     some), or that cuobjdump is missing;
   3. `kernel_vs_plain` — every CUDA kernel against its plain PyTorch
-     version on the card: the gate-walk kernels bit-exact on seeded random
-     populations (P up to 64, G up to 4,096, shared and per-individual
-     planes, W in {1, 33, 2048}), gateless plans, W == 0, and the five
-     golden tenants through the multi-tenant launch; the ternary matmul in
+     version on the card: the gate walks bit-exact, counted by the variant
+     the routing picks (`shared_plane` level walk, `global_scratch` walk),
+     on seeded random populations (P up to 64, G up to 4,096 with wide
+     unsorted levels, shared and per-individual planes, W in {1, 33,
+     2048}), gateless plans, W == 0, plans of 30,000 gates or 60,000
+     inputs past shared memory, the five golden tenants through the
+     multi-tenant launch, and each golden program through both walks (its
+     own schedule, and with 30,000 dead gates appended); every variant must
+     have run; `schedule` — the two schedule kernels: the levels
+     (`gate_levels`) bit-exact against the plain levels, and a raw plan's
+     schedule built on the card equal to the CPU's tensor-op build, on
+     random, deep-chain and gateless rows; the host time of a raw P = 64,
+     G = 4,096 population's schedule, built per call on the card, and the
+     level kernel's time; the ternary matmul in
      bf16 and f32 at M in {1, 7, 8, 9, 16, 64, 65, 256, 768} and (K, N)
      in the LM path's and K {36, 2048, 8192} x N {130, 200, 512, 8192},
      so every variant (split-K, tensor cores, CUDA cores) meets ragged
@@ -37,7 +49,9 @@ package) and prints one JSON object per phase:
      plain version; the arrhythmia tenant serves 262,144 seeded readings
      through a `max_batch=65536` engine and 512 submitted requests through
      a `max_batch=1024` engine; the five tenants run through one
-     `fleet_eval_words` launch.  Every kernel must have launched;
+     `fleet_eval_words` launch.  Every kernel must have launched, every
+     launch through the `shared_plane` level walk (launches are reported
+     by variant, with each program's schedule build time);
      `popcount_path` — with its counter zeroed, `ops.packed_popcount`
      counts the binarized features that fire in each of 65,536 arrhythmia
      readings (packed one row a reading, 9 words) and must equal the
@@ -67,9 +81,19 @@ package) and prints one JSON object per phase:
      widths at 2 layers in float32 (every leaf drawn, so `u`, `w0` and the
      token shifts are not zero), one 16-token prompt and 8 greedy steps on
      the card and on the CPU, held as `lm_cross_device` is;
-  7. `timing` — kernel (CUDA events, median of 25 after warm-up), plain
-     version and bound at 1,024 and 65,536 readings for arrhythmia and
-     cardio, plus the engine's per-dispatch wall time; `timing_ternary` —
+  7. `launch_floor` — an empty kernel timed as the kernels are, and the
+     card's `clocks.max.sm`; `timing` — kernel (CUDA events, median of 25
+     after warm-up, with the program's schedule), plain version and bound
+     at 1,024 and 65,536 readings for arrhythmia and cardio, the variant,
+     columns a block, dynamic shared memory, the program's schedule build
+     time and the chain bound (depth x 30 SM cycles at `clocks.max.sm`)
+     beside the bytes/ops bound, plus the engine's per-dispatch wall time;
+     `timing_fleet` — the same for the five tenants: `fleet_ms` times the
+     wrapper as a caller runs it (the padded plans from its cache, the
+     word planes padded, one launch), `fleet_kernel_ms` the launch alone,
+     `padding_host_ms` the one-time padding and schedule, and
+     `dispatch_p50_ms` `dispatch.fleet_eval_words` end to end on the
+     host's clock (numpy planes in, labels on the host); `timing_ternary` —
      the ternary-matmul kernel, its plain version, the bound and one
      `torch.matmul` on weights unpacked to bf16 beforehand (`library_ms`,
      a yardstick the port never calls) at each (K, N) of the LM path and
@@ -80,8 +104,10 @@ package) and prints one JSON object per phase:
      T 96, and decode, T 1 from a state; popcount: 65,536 readings x 9
      and x 32 words); no single PyTorch call computes either, so their
      `library_ms` is null;
-  8. the `kernels` line (the ternary matmul's entry at decode w_gate,
-     with a `prefill` field at M = 768 and its launches by variant), the
+  8. the `kernels` line (the gate walks' entries with their variant,
+     columns a block and chain bound; the ternary matmul's entry at decode
+     w_gate, with a `prefill` field at M = 768 and its launches by
+     variant), the
      card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Float32 products on the card run in full float32: TF32 is switched off
@@ -112,6 +138,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core rate
 OPS_PER_GATE_WORD = 6        # m0 ^ (ma&a) ^ (mb&b) ^ (mab&a&b)
+# The gate walk's dependency chain: a logic level cannot start before the
+# previous one's values are written, and a level costs at least one
+# shared-memory round trip and one barrier, taken as 30 SM cycles.
+CHAIN_CYCLES_PER_LEVEL = 30
 TIMED_REPS = 25
 PLAIN_REPS = 5
 SEED = 0
@@ -155,6 +185,42 @@ def nvidia_smi() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock (`nvidia-smi` clocks.max.sm), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_bound_ms(depth: int, mhz: float) -> float:
+    """Least time for a walk of `depth` dependent logic levels at
+    `CHAIN_CYCLES_PER_LEVEL` SM cycles a level and `mhz`."""
+    return depth * CHAIN_CYCLES_PER_LEVEL / (mhz * 1e3)
+
+
+def ptxas_kernels(log: str) -> list[dict]:
+    """Each kernel's registers and static shared memory from `-Xptxas -v`
+    (the level walk's plane is dynamic shared memory, sized per launch)."""
+    import re
+
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?", m.group(1))
+            name = m.group(1) if not k else k.group(1) if not k.group(2) \
+                else f"{k.group(1)}<{'true' if k.group(2) == '1' else 'false'}>"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                      line.strip())
+        if m and name:
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "static_smem_bytes": int(m.group(2) or 0)})
+            name = None
+    return rows
 
 
 def random_population(rng, n_in, G, n_out, P):
@@ -796,9 +862,13 @@ def main() -> int:
         ptxas[source] = [ln.strip() for ln in (log.read_text().splitlines()
                                                if log.exists() else [])
                          if "registers" in ln or "spill" in ln]
+    circuit_log = Path(str(libs[CK.SOURCE]) + ".log")
     say("build", seconds=round(build_s, 3),
         libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
-        ptxas=ptxas)
+        ptxas=ptxas,
+        circuit_kernels=ptxas_kernels(circuit_log.read_text()
+                                      if circuit_log.exists() else ""),
+        circuit_dynamic_smem_max_bytes=CK.SMEM_MAX)
     sass = sass_tensor_ops(libs[CT.SOURCE])
     say("sass", library=str(libs[CT.SOURCE].relative_to(ROOT)), **sass)
     if "kernels" in sass and not any(
@@ -816,25 +886,29 @@ def main() -> int:
         return (*D.check_plan(*rows, prog.ir.n_inputs), prog.ir.n_inputs)
 
     rng = np.random.default_rng(SEED)
-    stats = {k: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+    stats = {k: {"cases": 0, "mismatches": 0, "max_abs_err": 0,
+                 "variants": {v: {"cases": 0, "mismatches": 0}
+                              for v in CK.VARIANTS}}
              for k in CK.LAUNCHES}
 
-    def compare(name, got, want):
+    def compare(name, got, want, variant):
         if got.shape != want.shape:
             fail(f"{name}: shape {tuple(got.shape)} != plain "
                  f"{tuple(want.shape)}")
         err = int((got.long() - want.long()).abs().max().item()) \
             if got.numel() else 0
         s = stats[name]
-        s["cases"] += 1
-        s["mismatches"] += int(err != 0)
+        for d in (s, s["variants"][variant]):
+            d["cases"] += 1
+            d["mismatches"] += int(err != 0)
         s["max_abs_err"] = max(s["max_abs_err"], err)
 
     cases = [  # (n_in, G, n_out, P, W, per_individual)
         (274, 3020, 4, 1, 2048, False),
         (16, 4096, 8, 1, 2048, False),
         (8, 512, 3, 64, 2048, False),
-        (32, 4096, 8, 64, 33, True),
+        (32, 4096, 8, 64, 33, True),    # wide unsorted levels, P 64
+        (32, 4096, 8, 64, 2048, False),
         (12, 300, 5, 17, 33, True),
         (274, 3020, 4, 4, 1, True),
         (6, 40, 3, 5, 1, False),
@@ -842,18 +916,59 @@ def main() -> int:
         (3, 0, 3, 2, 1, True),
         (4, 10, 2, 3, 0, False),        # W == 0
         (4, 10, 2, 3, 0, True),
+        (16, 30000, 8, 2, 65, False),   # planes past shared memory
+        (8, 30000, 4, 3, 1, True),
+        (60000, 0, 4, 2, 1, False),
     ]
     for n_in, G, n_out, P, W, per_ind in cases:
         plan = [t(a) for a in random_population(rng, n_in, G, n_out, P)]
         shape = (P, n_in, W) if per_ind else (n_in, W)
         words = t(rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64)
                   .astype(np.uint32).view(np.int32))
-        compare("fused_eval_uint", CK.fused_eval_uint(*plan, words, n_in),
-                CS.population_eval_uint(*plan, words, n_in))
-        compare("simulate_population",
-                CK.simulate_population(*plan, words, n_in),
-                CS.simulate_population(*plan, words, n_in))
+        for name, fn, plain in (
+                ("fused_eval_uint", CK.fused_eval_uint,
+                 CS.population_eval_uint),
+                ("simulate_population", CK.simulate_population,
+                 CS.simulate_population)):
+            variant = CK.route(P, G, W, n_in, n_out, None).variant
+            compare(name, fn(*plan, words, n_in),
+                    plain(*plan, words, n_in), variant)
         torch.cuda.synchronize()
+    # the level kernel against the plain levels, and a raw plan's schedule
+    # built on the card against the same build on the CPU
+    lstats = {"cases": 0, "mismatches": 0}
+    for n_in, G, P in ((32, 4096, 64), (6, 40, 5), (16, 20000, 2),
+                       (5, 0, 3), (40000, 300, 3)):
+        op, in0, in1, outputs = random_population(rng, n_in, G, 2, P)
+        if P == 2:                            # one row a deep chain
+            in0[1] = n_in + np.arange(G) - 1
+            in0[1, 0] = 0
+        got = CK.gate_levels(t(in0), t(in1), n_in).cpu().numpy()
+        card = CK.schedule(t(op), t(in0), t(in1), n_in, device=dev)
+        cpu = CK.schedule(op, in0, in1, n_in)
+        lstats["cases"] += 1
+        lstats["mismatches"] += int(
+            not np.array_equal(got, CS.gate_levels(in0, in1, n_in))
+            or (card.depth, card.width) != (cpu.depth, cpu.width)
+            or not torch.equal(card.program.cpu(), cpu.program)
+            or not torch.equal(card.rank.cpu(), cpu.rank))
+    # the schedule's host time for a raw population, built per call on the
+    # card by the two schedule kernels
+    raw = random_population(rng, 32, 4096, 8, 64)
+    raw_t = [t(a) for a in raw]
+    builds = [CK.schedule(*raw_t[:3], 32, device=dev) for _ in range(7)]
+    raw_sched = builds[-1]
+    say("schedule", gate_levels=lstats,
+        schedule_launches=dict(CK.SCHEDULE_LAUNCHES), raw_population={
+        "P": 64, "G": 4096, "depth": raw_sched.depth,
+        "width": raw_sched.width,
+        "schedule_host_ms": float(np.median([b.build_ms for b in builds])),
+        "gate_levels_ms": gpu_ms(
+            lambda: CK.gate_levels(raw_t[1], raw_t[2], 32), TIMED_REPS,
+            True)})
+    if lstats["mismatches"]:
+        fail(f"gate_levels: {lstats['mismatches']} of {lstats['cases']} "
+             "cases differ from the plain levels or the CPU schedule")
 
     rows = load_manifest(EMIT_DIR)
     progs = {r["name"]: load_program(EMIT_DIR / r["program"], device=dev,
@@ -870,11 +985,36 @@ def main() -> int:
             words_list.append(prog.pack_input_bits(prog.binarize(x)))
         checked = [checked_plan(prog) for prog in progs.values()]
         got = CK.fleet_eval_words(checked, words_list)
-        padded = CK.pad_fleet(checked, words_list)
-        want = CS.population_eval_uint(*padded[:5], padded[5])
-        for tenant, w_t in enumerate(padded[6]):
+        fleet = CK.fleet_plan(checked, dev)
+        words_t, W_list = fleet.pad_words(words_list)
+        want = CS.population_eval_uint(*fleet[:4], words_t, fleet.n_in_max)
+        variant = CK.route(*fleet.op.shape, max(W_list), fleet.n_in_max,
+                           fleet.outputs.shape[1], fleet.schedule).variant
+        for tenant, w_t in enumerate(W_list):
             compare("fleet_eval_words", got[tenant],
-                    want[tenant, : w_t * 32])
+                    want[tenant, : w_t * 32], variant)
+    # the golden programs through each walk: their own schedules, and with
+    # dead gates appended past shared memory
+    for name, prog in progs.items():
+        ir = prog.ir
+        x = np.tile(golden[name]["x"], (24, 1))
+        words = prog.pack_input_bits(prog.binarize(x))
+        base = checked_plan(prog)[:4]
+        dead = np.zeros((1, 30000), np.int32)      # BUF gates reading node 0
+        plans = {"shared_plane": [t(a) for a in base], "global_scratch": [
+            t(np.concatenate([a, dead + fill], axis=1))
+            for a, fill in zip(base[:3], (3, 0, 0))] + [t(base[3])]}
+        for variant, plan in plans.items():
+            sched = prog.schedule if variant == "shared_plane" else None
+            routed = CK.route(1, plan[0].shape[1], words.shape[1],
+                              ir.n_inputs, ir.n_outputs, sched).variant
+            if routed != variant:
+                fail(f"{ir.name}: routed {routed}, expected {variant}")
+            compare("fused_eval_uint",
+                    CK.fused_eval_uint(*plan, words, ir.n_inputs,
+                                       schedule=sched),
+                    CS.population_eval_uint(*plan, words, ir.n_inputs),
+                    variant)
     torch.cuda.synchronize()
 
     tstats = ternary_vs_plain(dev, rng)
@@ -886,6 +1026,9 @@ def main() -> int:
         if s["mismatches"]:
             fail(f"{name}: {s['mismatches']} of {s['cases']} cases differ "
                  f"from the plain version (max abs err {s['max_abs_err']})")
+    for variant in CK.VARIANTS:
+        if not stats["fused_eval_uint"]["variants"][variant]["cases"]:
+            fail(f"kernel_vs_plain ran no case through {variant}")
     for dt, s in tstats.items():
         if s["mismatches"] or s["plain_mismatches"]:
             fail(f"ternary_matmul {dt}: {s['mismatches']} kernel and "
@@ -909,10 +1052,12 @@ def main() -> int:
 
     # -- 4. main path, counted ----------------------------------------------
     CK.reset_launches()
+    schedule_ms = {}
     for r in rows:
         prog = load_program(EMIT_DIR / r["program"], device="cuda",
                             expect_sha256=r["sha256"])
         progs[r["name"]] = prog
+        schedule_ms[r["name"]] = prog.schedule.build_ms
         fix = golden[r["name"]]
         labels = prog.predict(fix["x"])
         if not np.array_equal(labels, fix["labels"]):
@@ -963,11 +1108,17 @@ def main() -> int:
         if not np.array_equal(lab[:B], golden[n]["labels"]):
             fail(f"{n}: fleet_eval_words labels differ from tests/golden")
     launches = dict(CK.LAUNCHES)
-    say("main_path", launches=launches, fleet_tenants=len(progs),
-        fleet_labels_equal=True)
+    by_variant = dict(CK.VARIANT_LAUNCHES)
+    say("main_path", launches=launches, launches_by_variant=by_variant,
+        schedule_launches=dict(CK.SCHEDULE_LAUNCHES),
+        fleet_tenants=len(progs), fleet_labels_equal=True,
+        program_schedule_host_ms=schedule_ms)
     for name, n in launches.items():
         if n <= 0:
             fail(f"the main path never launched {name}")
+    if by_variant["shared_plane"] != sum(launches.values()):
+        fail(f"main path: launches by variant {by_variant}, expected every "
+             f"one of {sum(launches.values())} through shared_plane")
 
     # per-reading packing: the readings' bits as rows of 9 words
     fire = arr.binarize(x_stream[:65536])
@@ -991,6 +1142,10 @@ def main() -> int:
     rwkv = rwkv_phases(dev, get_config("rwkv6-7b"))
 
     # -- 7. timing ----------------------------------------------------------
+    mhz = max_sm_clock_mhz()
+    # the least a timed launch can read: an empty kernel, timed the same way
+    launch_floor_ms = gpu_ms(lambda: torch.cuda._sleep(0), TIMED_REPS, True)
+    say("launch_floor", ms=launch_floor_ms, max_sm_clock_mhz=mhz)
     timings = []
     for name in ("arrhythmia", "cardio"):
         prog = progs[name]
@@ -1003,10 +1158,21 @@ def main() -> int:
                 golden[name]["x"], (-(-batch // 96), 1))[:batch]
             words = prog.pack_input_bits(prog.binarize(x))
             W = words.shape[1]
+            sched = prog.schedule
+            route = CK.route(1, G, W, n_in, n_out, sched)
+            tap_route = CK.route(1, G, W, n_in, tap.shape[1], sched)
             row = {"tenant": name, "readings": batch, "W": W, "G": G,
-                   "n_in": n_in, "depth": prog.ir.depth}
+                   "n_in": n_in, "depth": prog.ir.depth,
+                   "variant": route.variant,
+                   "columns_per_block": route.columns,
+                   "simulate_columns_per_block": tap_route.columns,
+                   "dynamic_smem_bytes": route.smem_bytes,
+                   "schedule_host_ms": sched.build_ms,
+                   "chain_bound_ms": chain_bound_ms(prog.ir.depth, mhz),
+                   "launch_floor_ms": launch_floor_ms}
             row["fused_ms"] = gpu_ms(
-                lambda: CK.fused_eval_uint(*plan, words, n_in), TIMED_REPS,
+                lambda: CK.fused_eval_uint(*plan, words, n_in,
+                                           schedule=sched), TIMED_REPS,
                 True)
             row["fused_plain_ms"] = gpu_ms(
                 lambda: CS.population_eval_uint(*plan, words, n_in),
@@ -1014,7 +1180,8 @@ def main() -> int:
             row["fused_bound_ms"], row["fused_bound_by"] = bound_ms(
                 [(n_in, G, n_out, W)], True)
             row["simulate_ms"] = gpu_ms(
-                lambda: CK.simulate_population(*tap_plan, words, n_in),
+                lambda: CK.simulate_population(*tap_plan, words, n_in,
+                                               schedule=sched),
                 TIMED_REPS, True)
             row["simulate_plain_ms"] = gpu_ms(
                 lambda: CS.simulate_population(*tap_plan, words, n_in),
@@ -1031,21 +1198,49 @@ def main() -> int:
 
     fleet_rows = []
     for batch in (1024, 65536):
-        plans, words_list = [], []
+        plans, words_list, words_np = [], [], []
         for name, prog in progs.items():
             x = np.tile(golden[name]["x"], (-(-batch // 96), 1))[:batch]
             plans.append(checked_plan(prog))
             words_list.append(prog.pack_input_bits(prog.binarize(x)))
-        padded = CK.pad_fleet(plans, words_list)
-        T, G_pad = padded[0].shape
-        n_in_max, W_max = padded[5], max(padded[6])
+            words_np.append(words_list[-1].cpu().numpy().view(np.uint32))
+        t0 = time.perf_counter()
+        fleet = CK.pad_plans(plans, dev)
+        pad_ms = (time.perf_counter() - t0) * 1e3
+        words_t, W_list = fleet.pad_words(words_list)
+        T, G_pad = fleet.op.shape
+        n_in_max, W_max = fleet.n_in_max, max(W_list)
+        route = CK.route(T, G_pad, W_max, n_in_max, fleet.outputs.shape[1],
+                         fleet.schedule)
         row = {"tenants": T, "readings_each": batch, "W": W_max,
-               "G_padded": G_pad, "n_in_padded": n_in_max}
+               "G_padded": G_pad, "n_in_padded": n_in_max,
+               "depth": fleet.schedule.depth, "variant": route.variant,
+               "columns_per_block": route.columns,
+               "dynamic_smem_bytes": route.smem_bytes,
+               "schedule_host_ms": fleet.schedule.build_ms,
+               "padding_host_ms": pad_ms,
+               "chain_bound_ms": chain_bound_ms(fleet.schedule.depth, mhz),
+               "launch_floor_ms": launch_floor_ms}
+        # the wrapper as a caller runs it (the span the parent timed): the
+        # padded plans from the cache, the words padded, one launch
         row["fleet_ms"] = gpu_ms(
             lambda: CK.fleet_eval_words(plans, words_list), TIMED_REPS, True)
+        # the launch alone, on word planes padded beforehand
+        row["fleet_kernel_ms"] = gpu_ms(
+            lambda: CK.fused_eval_uint(*fleet[:4], words_t, n_in_max,
+                                       schedule=fleet.schedule),
+            TIMED_REPS, True)
         row["fleet_plain_ms"] = gpu_ms(
-            lambda: CS.population_eval_uint(*padded[:5], n_in_max),
+            lambda: CS.population_eval_uint(*fleet[:4], words_t, n_in_max),
             PLAIN_REPS, False)
+        # the serving dispatch end to end on the host's clock: numpy word
+        # planes in, labels on the host
+        walls = []
+        for _ in range(TIMED_REPS):
+            t0 = time.perf_counter()
+            D.fleet_eval_words(plans, words_np, device=dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        row["dispatch_p50_ms"] = float(np.median(walls))
         row["fleet_bound_ms"], row["fleet_bound_by"] = bound_ms(
             [(p[4], p[0].shape[1], p[3].shape[1], w.shape[1])
              for p, w in zip(plans, words_list)], True)
@@ -1073,6 +1268,10 @@ def main() -> int:
          "ms": main_row["fused_ms"], "plain_ms": main_row["fused_plain_ms"],
          "bound_ms": main_row["fused_bound_ms"],
          "bound_by": main_row["fused_bound_by"], "library_ms": None,
+         "variant": main_row["variant"],
+         "columns_per_block": main_row["columns_per_block"],
+         "chain_bound_ms": main_row["chain_bound_ms"],
+         "launches_by_variant": by_variant,
          "cases": stats["fused_eval_uint"]["cases"],
          "mismatches": stats["fused_eval_uint"]["mismatches"],
          "shape": "arrhythmia, 65536 readings"},
@@ -1084,6 +1283,9 @@ def main() -> int:
          "plain_ms": main_row["simulate_plain_ms"],
          "bound_ms": main_row["simulate_bound_ms"],
          "bound_by": main_row["simulate_bound_by"], "library_ms": None,
+         "variant": main_row["variant"],
+         "columns_per_block": main_row["simulate_columns_per_block"],
+         "chain_bound_ms": main_row["chain_bound_ms"],
          "cases": stats["simulate_population"]["cases"],
          "mismatches": stats["simulate_population"]["mismatches"],
          "shape": "arrhythmia score taps, 65536 readings"},
@@ -1095,6 +1297,10 @@ def main() -> int:
          "plain_ms": fleet_rows[1]["fleet_plain_ms"],
          "bound_ms": fleet_rows[1]["fleet_bound_ms"],
          "bound_by": fleet_rows[1]["fleet_bound_by"], "library_ms": None,
+         "variant": fleet_rows[1]["variant"],
+         "columns_per_block": fleet_rows[1]["columns_per_block"],
+         "chain_bound_ms": fleet_rows[1]["chain_bound_ms"],
+         "kernel_only_ms": fleet_rows[1]["fleet_kernel_ms"],
          "cases": stats["fleet_eval_words"]["cases"],
          "mismatches": stats["fleet_eval_words"]["mismatches"],
          "shape": "five golden tenants, 65536 readings each"},

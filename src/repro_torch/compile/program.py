@@ -4,10 +4,13 @@ The port's `repro.compile.program.CircuitProgram`.  A program lives on one
 device (`device=None` is the current CUDA device, and raises without one).
 Raw sensor floats are compared with the ABC thresholds in float64 on that
 device (the reference promotes float32 readings to float64 the same way),
-packed 32 readings per int32 word on the device, and evaluated through
-`kernels.dispatch.program_eval_words`: the CUDA fused gate-walk kernel on
-the card, the plain PyTorch version on the CPU.  Labels come back to the
-host as numpy arrays, bit-identical to the reference's.
+packed 32 readings per int32 word on the device, and evaluated by
+`kernels.cuda_circuit_sim.fused_eval_uint`: the CUDA level walk on the
+card, the plain PyTorch version on the CPU.  The program checks its plan
+once, keeps it on its device, and holds its level `schedule` (built once
+from `ir.levels`, which are validated first), so a dispatch uploads and
+builds nothing.  Labels come back to the host as numpy arrays,
+bit-identical to the reference's.
 """
 from __future__ import annotations
 
@@ -32,14 +35,26 @@ class CircuitProgram:
     n_classes: int | None = None
     device: torch.device | str | None = None
     _plan: tuple = field(default=(), repr=False)
+    _score_taps: torch.Tensor | None = field(default=None, repr=False)
     _thr: torch.Tensor | None = field(default=None, repr=False)
+    schedule: CK.Schedule | None = field(default=None, init=False,
+                                         repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.ir.to_netlist()    # feed-forward check before any kernel runs
-        self._plan = D.check_plan(self.ir.op[None], self.ir.in0[None],
-                                  self.ir.in1[None], self.ir.outputs[None],
-                                  self.ir.n_inputs)
+        plan = D.check_plan(self.ir.op[None], self.ir.in0[None],
+                            self.ir.in1[None], self.ir.outputs[None],
+                            self.ir.n_inputs)
+        self._plan = tuple(self._on_device(a) for a in plan)
+        self.schedule = CK.schedule(*plan[:3], self.ir.n_inputs,
+                                    levels=self.ir.levels[None],
+                                    outputs=plan[3], device=self.device)
+        if "score" in self.ir.taps:
+            tap = np.asarray(self.ir.taps["score"], dtype=np.int32)
+            taps = D.check_plan(*plan[:3], tap.reshape(1, -1),
+                                self.ir.n_inputs)[3]
+            self._score_taps = self._on_device(taps)
         if self.thresholds is not None:
             self.thresholds = np.asarray(self.thresholds, dtype=np.float64)
             self._thr = torch.from_numpy(self.thresholds).to(self.device)
@@ -76,20 +91,27 @@ class CircuitProgram:
         return (x > self._thr[None, :]).to(torch.uint8)
 
     # -- execution ----------------------------------------------------------
-    def _eval_words32(self, words) -> np.ndarray:
-        out = D.program_eval_words(*self._plan, words, self.ir.n_inputs,
-                                   devices=(self.device,))
-        return out[0]
+    def eval_words(self, words32) -> np.ndarray:
+        """Packed `(n_inputs, W)` words (uint32 numpy or an int32 tensor) ->
+        `(W*32,)` int64 decoded outputs (LSB-first), through the plan and
+        schedule the program holds on its device."""
+        if words32.ndim != 2:
+            raise ValueError("eval_words wants a shared (n_inputs, W) word "
+                             "plane")
+        words = CS.words_tensor(words32, self.device)
+        out = CK.fused_eval_uint(*self._plan, words, self.ir.n_inputs,
+                                 schedule=self.schedule)
+        return out[0].cpu().numpy().astype(np.int64)
 
     def eval_uint(self, packed_u64: np.ndarray) -> np.ndarray:
         """`(n_inputs, W)` uint64 packed vectors -> `(W*64,)` int64 decoded
         outputs (LSB-first)."""
-        return self._eval_words32(CS.pack_words32(packed_u64))
+        return self.eval_words(CS.pack_words32(packed_u64))
 
     def eval_bits(self, bits) -> np.ndarray:
         """`(S, n_inputs)` 0/1 matrix -> `(S,)` int64 decoded outputs."""
         S = bits.shape[0]
-        return self._eval_words32(self.pack_input_bits(bits))[:S]
+        return self.eval_words(self.pack_input_bits(bits))[:S]
 
     # -- classifier inference ----------------------------------------------
     def predict_bits(self, xbin) -> np.ndarray:
@@ -108,15 +130,13 @@ class CircuitProgram:
         Runs the words-only kernel (`simulate_population`) re-rooted at the
         `(C, j)` score tap plane, then decodes each class's j bits LSB-first.
         """
-        if "score" not in self.ir.taps:
+        if self._score_taps is None:
             raise ValueError("program has no score taps")
-        tap = np.asarray(self.ir.taps["score"], dtype=np.int32)   # (C, j)
-        Cc, j = tap.shape
+        Cc, j = np.shape(self.ir.taps["score"])
         S = xbin.shape[0]
-        plan = D.check_plan(self._plan[0], self._plan[1], self._plan[2],
-                            tap.reshape(1, -1), self.ir.n_inputs)
-        plan = [torch.from_numpy(a).to(self.device) for a in plan]
         words = self.pack_input_bits(xbin)
-        outw = CK.simulate_population(*plan, words, self.ir.n_inputs)
+        outw = CK.simulate_population(*self._plan[:3], self._score_taps,
+                                      words, self.ir.n_inputs,
+                                      schedule=self.schedule)
         ints = CS.decode_words(outw.reshape(Cc, j, -1))          # (C, W*32)
         return ints[:, :S].T.cpu().numpy().astype(np.int64)

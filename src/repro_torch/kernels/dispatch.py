@@ -2,11 +2,13 @@
 
 The port's `repro.kernels.dispatch`.  The reference picks an executor by
 backend name; here the device decides.  Every entry point takes numpy
-plans, validates them once on the host (`check_plan`: the CUDA kernel
-trusts every node id), moves them to the device and runs the wrappers of
+plans, validates them on the host (`check_plan`: the CUDA kernel trusts
+every node id), moves them to the device and runs the wrappers of
 `cuda_circuit_sim`, which launch the kernel for CUDA tensors and run the
-plain PyTorch version for CPU tensors.  `devices=None` means the current
-CUDA device and raises without one; there is no fallback to the CPU.
+plain PyTorch version for CPU tensors; the fleet dispatch validates, pads
+and schedules a set of plans once and reuses them.  `devices=None` means
+the current CUDA device and raises without one; there is no fallback to
+the CPU.
 
   * `population_eval_uint` / `population_eval_pop` split the population
     axis across an explicit device list;
@@ -22,10 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.circuits import N_OPS
 from repro_torch.device import resolve_device
 from repro_torch.kernels import circuit_sim as CS
 from repro_torch.kernels import cuda_circuit_sim as CK
+from repro_torch.kernels.circuit_sim import check_plan
 
 
 def replica_devices(index: int, devices=None) -> tuple:
@@ -48,33 +50,6 @@ def replica_devices(index: int, devices=None) -> tuple:
     if not devs:
         raise ValueError("no devices to pin replicas to")
     return (devs[index % len(devs)],)
-
-
-def check_plan(op, in0, in1, outputs, n_inputs: int) -> tuple:
-    """Validate a `(P, G)` population plan on the host; returns int32 arrays.
-
-    Raises `ValueError` on mismatched shapes, unknown opcodes, or a plan
-    that is not feed-forward (gate g reading a node id >= n_inputs + g)
-    or taps an output outside the node range.
-    """
-    op = np.ascontiguousarray(op, dtype=np.int32)
-    in0 = np.ascontiguousarray(in0, dtype=np.int32)
-    in1 = np.ascontiguousarray(in1, dtype=np.int32)
-    outputs = np.ascontiguousarray(outputs, dtype=np.int32)
-    if op.ndim != 2 or in0.shape != op.shape or in1.shape != op.shape:
-        raise ValueError(f"op/in0/in1 must share one (P, G) shape, got "
-                         f"{op.shape}, {in0.shape}, {in1.shape}")
-    if outputs.ndim != 2 or outputs.shape[0] != op.shape[0]:
-        raise ValueError(f"outputs must be (P, n_out), got {outputs.shape}")
-    G = op.shape[1]
-    ids = n_inputs + np.arange(G, dtype=np.int64)
-    if ((op < 0) | (op >= N_OPS)).any():
-        raise ValueError("unknown gate opcode in plan")
-    if ((in0 < 0) | (in0 >= ids) | (in1 < 0) | (in1 >= ids)).any():
-        raise ValueError("plan is not feed-forward")
-    if ((outputs < 0) | (outputs >= n_inputs + G)).any():
-        raise ValueError("output id out of range")
-    return op, in0, in1, outputs
 
 
 def _devices(devices) -> list[torch.device]:
@@ -154,18 +129,15 @@ def fleet_eval_words(plans: list, words_list: list,
     """Whole-manifest serving dispatch: T tenants' circuits in ONE launch.
 
     `plans` holds one `(op, in0, in1, outputs, n_inputs)` plan per tenant
-    (flat or `(1, G)` rows) and `words_list` the matching `(n_inputs_t,
-    W_t)` word planes (uint32 numpy or int32 tensors).  Returns one
-    `(W_t * 32,)` int64 array per tenant, equal to dispatching each tenant
-    through `program_eval_words` on its own.
+    (flat or `(1, G)` rows), `words_list` the matching `(n_inputs_t, W_t)`
+    word planes (uint32 numpy or int32 tensors).  The padded plans and
+    their level schedule are validated and built on the first dispatch of
+    a set of plans and reused by every later one
+    (`cuda_circuit_sim.fleet_plan`).  Returns one `(W_t * 32,)` int64
+    array per tenant, equal to dispatching each tenant through
+    `program_eval_words` on its own.
     """
     dev = resolve_device(device)
-    checked = []
-    for op, in0, in1, outputs, n_in in plans:
-        plan = check_plan(np.reshape(op, (1, -1)), np.reshape(in0, (1, -1)),
-                          np.reshape(in1, (1, -1)),
-                          np.reshape(outputs, (1, -1)), int(n_in))
-        checked.append((*plan, int(n_in)))
     words = [CS.words_tensor(w, dev) for w in words_list]
     return [o.cpu().numpy().astype(np.int64)
-            for o in CK.fleet_eval_words(checked, words)]
+            for o in CK.fleet_eval_words(plans, words)]

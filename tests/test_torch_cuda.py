@@ -291,3 +291,195 @@ def test_rwkv_engine_scans_run_through_the_kernel(cuda):
     forwards = eng.stats.n_prefills + eng.stats.decode_steps
     assert [len(r.output) for r in reqs] == [4, 4, 4]
     assert CW.LAUNCHES["rwkv6_scan"] == cfg.n_layers * forwards
+
+
+PAST_LIMIT = 30_000     # dead gates that push a plan past shared memory
+
+
+def _past_limit(plan):
+    """`plan` with PAST_LIMIT dead BUF gates appended (reading node 0): the
+    same outputs, but a plane and schedule too large for shared memory, so
+    the routing takes the global-scratch walk."""
+    op, in0, in1, outputs = plan
+    P = op.shape[0]
+    pad = np.full((P, PAST_LIMIT), 3, np.int32)
+    zero = np.zeros((P, PAST_LIMIT), np.int32)
+    return [np.ascontiguousarray(np.concatenate([a, b], axis=1))
+            for a, b in ((op, pad), (in0, zero), (in1, zero))] + [outputs]
+
+
+def _both_variants_equal_plain(dev, plan, words, n_in, variant,
+                               schedule=None):
+    plan = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in plan]
+    P, G = plan[0].shape
+    assert CK.route(P, G, words.shape[-1], n_in, plan[3].shape[1],
+                    None).variant == variant
+    before = dict(CK.VARIANT_LAUNCHES)
+    got = CK.fused_eval_uint(*plan, words, n_in, schedule=schedule)
+    words_out = CK.simulate_population(*plan, words, n_in, schedule=schedule)
+    launched = 2 if words.shape[-1] and P else 0
+    assert CK.VARIANT_LAUNCHES[variant] == before[variant] + launched
+    assert sum(CK.VARIANT_LAUNCHES.values()) == sum(before.values()) + \
+        launched
+    assert torch.equal(got, CS.population_eval_uint(*plan, words, n_in))
+    assert torch.equal(words_out, CS.simulate_population(*plan, words, n_in))
+
+
+def _words(dev, rng, shape):
+    return torch.from_numpy(
+        rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64)
+        .astype(np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("variant", ["shared_plane", "global_scratch"])
+@pytest.mark.parametrize("per_individual", [False, True])
+@pytest.mark.parametrize("n_in,G,n_out,P,W", [
+    (6, 40, 3, 5, 1), (32, 4096, 8, 64, 33), (8, 512, 32, 3, 2048),
+    (5, 0, 2, 3, 33), (4, 10, 2, 3, 0), (12, 300, 0, 2, 65)])
+def test_level_and_global_walks_equal_plain(cuda, n_in, G, n_out, P, W,
+                                            per_individual, variant):
+    """Unsorted random plans (wide, shallow levels), gateless plans, W 0
+    and 1, 0 and 32 outputs, through each design; the global-scratch walk
+    by appending dead gates past the shared-memory limit."""
+    if variant == "global_scratch" and P * W > 64 * 33:
+        P = 2                  # the plain version walks 30,000 more gates
+    rng = np.random.default_rng(n_in * 1000 + G + W + P)
+    plan = _population(rng, n_in, G, n_out, P)
+    if n_out:
+        plan[3][:, 0] = n_in - 1          # an output tapping an input
+    if variant == "global_scratch":
+        plan = _past_limit(plan)
+    shape = (P, n_in, W) if per_individual else (n_in, W)
+    _both_variants_equal_plain(cuda, plan, _words(cuda, rng, shape), n_in,
+                               variant)
+
+
+def test_wide_gateless_plane_takes_the_global_walk(cuda):
+    rng = np.random.default_rng(2)
+    n_in = 60_000
+    plan = _population(rng, n_in, 0, 4, 2)
+    _both_variants_equal_plain(cuda, plan, _words(cuda, rng, (n_in, 1)),
+                               n_in, "global_scratch")
+
+
+@pytest.mark.parametrize("variant", ["shared_plane", "global_scratch"])
+def test_golden_programs_through_each_walk(cuda, variant):
+    rows = load_manifest(TESTS / "golden_emit")
+    for row in rows:
+        prog = load_program(TESTS / "golden_emit" / row["program"],
+                            device=cuda, expect_sha256=row["sha256"])
+        fix = np.load(TESTS / "golden" / f"{row['name']}.npz")
+        x = np.tile(fix["x"], (24, 1))                 # 2,304 readings
+        words = prog.pack_input_bits(prog.binarize(x))
+        ir = prog.ir
+        plan = [np.asarray(a, np.int32)[None]
+                for a in (ir.op, ir.in0, ir.in1, ir.outputs)]
+        if variant == "global_scratch":
+            plan = _past_limit(plan)
+            sched = None
+        else:
+            sched = prog.schedule
+        _both_variants_equal_plain(cuda, plan, words, ir.n_inputs, variant,
+                                   schedule=sched)
+        got = CK.fused_eval_uint(
+            *[torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+              for a in plan], words, ir.n_inputs, schedule=sched)
+        np.testing.assert_array_equal(
+            got[0, : x.shape[0]].cpu().numpy()[:96], fix["labels"])
+
+
+def test_program_serving_runs_the_level_walk(cuda):
+    """predict, scores and the fleet launch of the golden tenants all go
+    through the shared-plane walk, with the program's own schedule."""
+    from repro_torch.kernels import dispatch as D
+
+    CK.reset_launches()
+    rows = load_manifest(TESTS / "golden_emit")
+    progs = [load_program(TESTS / "golden_emit" / r["program"], device=cuda,
+                          expect_sha256=r["sha256"]) for r in rows]
+    xs = [np.load(TESTS / "golden" / f"{r['name']}.npz")["x"] for r in rows]
+    for prog, x in zip(progs, xs):
+        prog.predict(x)
+        prog.scores(prog.binarize(x))
+    fused = D.fleet_eval_words(
+        [p.plan() for p in progs],
+        [p.pack_input_bits(p.binarize(x)) for p, x in zip(progs, xs)],
+        device=cuda)
+    for prog, x, lab in zip(progs, xs, fused):
+        np.testing.assert_array_equal(lab[: x.shape[0]], prog.predict(x))
+    n = len(rows)
+    assert CK.LAUNCHES == {"fused_eval_uint": 2 * n,
+                           "simulate_population": n,
+                           "fleet_eval_words": 1}
+    assert CK.VARIANT_LAUNCHES == {"shared_plane": 3 * n + 1,
+                                   "global_scratch": 0}
+    # programs and the fleet carry their levels: no schedule kernel ran
+    assert CK.SCHEDULE_LAUNCHES == {"gate_levels": 0, "schedule": 0}
+
+
+@pytest.mark.parametrize("n_in,G,P", [
+    (32, 4096, 64), (6, 40, 5), (5, 0, 3), (1, 1, 1), (16, 20000, 2),
+    (40000, 300, 3)])
+def test_level_kernel_equals_plain(cuda, n_in, G, P):
+    """Levels of unsorted random rows (wide and shallow), of deep chains
+    (every gate reads the one before), and of gateless rows."""
+    rng = np.random.default_rng(G + P)
+    op, in0, in1, _ = _population(rng, n_in, G, 1, P)
+    if P == 2:                                  # one deep chain row
+        in0[1] = n_in + np.arange(G) - 1
+        in0[1, 0] = 0
+    before = CK.SCHEDULE_LAUNCHES["gate_levels"]
+    got = CK.gate_levels(torch.from_numpy(in0).to(cuda),
+                         torch.from_numpy(in1).to(cuda), n_in)
+    assert CK.SCHEDULE_LAUNCHES["gate_levels"] == before + int(G > 0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  CS.gate_levels(in0, in1, n_in))
+
+
+def test_level_kernel_gives_the_golden_levels(cuda):
+    for row in load_manifest(TESTS / "golden_emit"):
+        prog = load_program(TESTS / "golden_emit" / row["program"],
+                            device="cpu", expect_sha256=row["sha256"])
+        ir = prog.ir
+        got = CK.gate_levels(torch.from_numpy(ir.in0[None]).to(cuda),
+                             torch.from_numpy(ir.in1[None]).to(cuda),
+                             ir.n_inputs)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), ir.levels)
+
+
+@pytest.mark.parametrize("n_in,G,n_out,P", [(32, 4096, 8, 64),
+                                            (274, 3020, 4, 3),
+                                            (3, 20000, 2, 2),
+                                            (5, 0, 2, 2)])
+def test_schedule_on_the_card_equals_the_cpu_build(cuda, n_in, G, n_out, P):
+    """The two schedule kernels against the tensor-op build: the same
+    depth, widest level, slots and buffers, bit for bit."""
+    rng = np.random.default_rng(n_in + G)
+    plan = _population(rng, n_in, G, n_out, P)
+    before = CK.SCHEDULE_LAUNCHES["schedule"]
+    on_card = CK.schedule(*[torch.from_numpy(a).to(cuda) for a in plan[:3]],
+                          n_in, device=cuda)
+    assert CK.SCHEDULE_LAUNCHES["schedule"] == before + int(G > 0)
+    on_cpu = CK.schedule(*plan[:3], n_in)
+    assert (on_card.depth, on_card.width) == (on_cpu.depth, on_cpu.width)
+    assert torch.equal(on_card.rank.cpu(), on_cpu.rank)
+    assert torch.equal(on_card.program.cpu(), on_cpu.program)
+
+
+@pytest.mark.parametrize("per_individual", [False, True])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_word_plane_off_a_16_byte_boundary(cuda, offset, per_individual):
+    """A contiguous word view that starts mid-allocation (a device split of
+    the word axis gives one) loads word by word, not in 16-byte quads."""
+    rng = np.random.default_rng(offset)
+    n_in, G, n_out, P, W = 12, 300, 5, 3, 2048
+    plan = _population(rng, n_in, G, n_out, P)
+    # whole quads of columns: the 16-byte loads would apply if aligned
+    sched = CK.schedule(*plan[:3], n_in)
+    assert CK.route(P, G, W, n_in, n_out, sched).columns % 4 == 0
+    shape = (P, n_in, W) if per_individual else (n_in, W)
+    flat = _words(cuda, rng, (int(np.prod(shape)) + offset,))
+    words = flat[offset:].view(shape)
+    assert words.is_contiguous() and words.data_ptr() % 16
+    _both_variants_equal_plain(cuda, plan, words, n_in, "shared_plane")

@@ -13,8 +13,9 @@ one JSON line each with:
     `CircuitProgram.predict` with a device synchronise after every stage:
     `binarize` (host-to-device copy of the float readings and the float64
     threshold compare), `pack` (bit packing on the device) and
-    `eval_words` (plan check and upload, the gate-walk kernel, labels back
-    to the host), beside the whole `predict`;
+    `eval_words` (the gate-walk kernel on the plan and level schedule the
+    program holds on the card, labels back to the host), beside the whole
+    `predict`;
   * `profile` — `torch.profiler` over 10 engine dispatches: the device's
     busy time (the sum of its kernels, copies and memsets) against the
     wall time, and the five largest device-side entries.
@@ -171,7 +172,6 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.compile.artifact import load_manifest, load_program
-    from repro_torch.kernels import dispatch as D
     from repro_torch.serve.engine import CircuitServingEngine
 
     emit = ROOT / "tests" / "golden_emit"
@@ -183,7 +183,6 @@ def main() -> int:
         prog = load_program(emit / rows[name]["program"],
                             expect_sha256=rows[name]["sha256"])
         thr = prog.thresholds.astype(np.float32)
-        plan = [np.reshape(a, (1, -1)) for a in prog.plan()[:4]]
         for batch in (1024, 65536):
             x = thr[None, :] + rng.standard_normal(
                 (batch, thr.shape[0]), dtype=np.float32) * np.maximum(
@@ -193,9 +192,7 @@ def main() -> int:
             stages = {
                 "binarize": median_ms(lambda: prog.binarize(x)),
                 "pack": median_ms(lambda: prog.pack_input_bits(xbin)),
-                "eval_words": median_ms(lambda: D.program_eval_words(
-                    *plan, words, prog.ir.n_inputs,
-                    devices=(prog.device,))),
+                "eval_words": median_ms(lambda: prog.eval_words(words)),
                 "predict": median_ms(lambda: prog.predict(x)),
             }
             eng = CircuitServingEngine(prog, max_batch=batch)
