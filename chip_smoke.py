@@ -37,12 +37,20 @@ package) and prints one JSON object per phase:
      so every variant (split-K, tensor cores, CUDA cores) meets ragged
      edges, every element inside the f32 envelope around the float64
      product and each case launched twice bit-identical; the packed popcount
-     bit-exact at (1, 1), (256, 17), (1000, 3), (65536, 32) and on the
-     edge words; the WKV-6 scan at BH in {1, 512}, T in {1, 7, 96, 512},
-     dh in {16, 64}, decays from U(0.01, 0.999), with and without an
-     initial state, every element inside the f32 envelope of the float64
-     recurrence, and runs split in two with the state carried across
-     equal to one pass, bit for bit;
+     bit-exact at (1, 1), (256, 17), (1000, 3), (65536, 32), (65536, 9),
+     every W from 0 to 64 at B 1 and 333, W 65 / 100 / 1000 at B 1,001,
+     word planes 4 bytes off a 16-byte boundary and the edge words, each
+     design (`rows`, `warp`) and both load widths run; the WKV-6 scan on
+     the reference's (BH, T, dh) float32 layout at BH in {1, 512}, T in
+     {1, 7, 96, 512}, dh in {16, 64}, decays from U(0.01, 0.999), and on
+     the model's (B, T, H, dh) layout (strided bf16 and f32 views of a
+     wider projection, u shared by the batch, T in {0, 1, 13, 96}, dh in
+     {16, 64}, decays log-uniform down to 1e-12, views off 16-byte
+     boundaries, each staging design run), with and without an initial
+     state, every element inside the f32 envelope of the float64
+     recurrence, the state written in place over s0 equal to the run out
+     of place bit for bit, and runs split in two with the state carried
+     across equal to one pass, bit for bit;
   4. `main_path` — the launch counters are zeroed, then each tenant of
      `tests/golden_emit/fleet.json` is loaded on the card and must
      reproduce `tests/golden/<name>.npz` labels; `scores` must equal the
@@ -71,13 +79,17 @@ package) and prints one JSON object per phase:
      top-2 margin exceeds it;
   6b. `rwkv_serving` — rwkv6-7b at full width and depth (32 layers,
      d_model 4096, 64 heads of 64, vocab 65,536, dense bf16, 7.6 B
-     parameters drawn on the card by `init_params` from seed 0): the scan
-     inputs of layer 0 in a prefill of 8 x 96 tokens and in a decode step
-     are captured and the kernel is held against the plain version on them
-     (the model's own decays; a `kernel_vs_plain` line); then, with the
-     counter zeroed, the `lm_serving` traffic through `ServingEngine`:
-     `rwkv6_scan` must launch 32 x forwards times, every request get its
-     32 tokens and the logits be finite;  `rwkv_cross_device` — the same
+     parameters drawn on the card by `init_params` from seed 0): the
+     operands of layer 0's `ops.rwkv6_scan_heads` call (the model's bf16
+     (B, T, H, dh) views, its decays, its (H, dh) bonus and the state the
+     cache holds) in a prefill of 8 x 96 tokens and in a decode step are
+     captured, and the kernel is held against the plain version on them,
+     in that layout and in the (BH, T, dh) float32 one (the model's own
+     decays; a `kernel_vs_plain` line); then, with the counters zeroed,
+     the `lm_serving` traffic through `ServingEngine`: `rwkv6_scan` must
+     launch 32 x forwards times, all through `cp_async` staging, every
+     request get its 32 tokens and the logits be finite;
+     `rwkv_cross_device` — the same
      widths at 2 layers in float32 (every leaf drawn, so `u`, `w0` and the
      token shifts are not zero), one 16-token prompt and 8 greedy steps on
      the card and on the CPU, held as `lm_cross_device` is;
@@ -99,15 +111,20 @@ package) and prints one JSON object per phase:
      a yardstick the port never calls) at each (K, N) of the LM path and
      M in {1, 8, 256, 768}, with the variant, K splits and tile the plan
      picks;
-     `timing_rwkv` and `timing_popcount` — kernel, plain version and bound
-     at the path's shapes (WKV: rwkv6-7b's captured prefill, BH 512 x
-     T 96, and decode, T 1 from a state; popcount: 65,536 readings x 9
-     and x 32 words); no single PyTorch call computes either, so their
-     `library_ms` is null;
+     `timing_rwkv` and `timing_popcount` — kernel, plain version, bound,
+     design and launch floor at the path's shapes (WKV: rwkv6-7b's
+     captured prefill, BH 512 x T 96, and decode, T 1 from a state, in
+     the (BH, T, dh) float32 layout PR 13 timed, and the same two on the
+     model's own bf16 (B, T, H, dh) views with the decode state written
+     in place, bound at the bytes those views need; popcount: 65,536
+     readings x 9 and x 32 words, and 4,194,304 x 9 random words); no
+     single PyTorch call computes either, so their `library_ms` is null;
   8. the `kernels` line (the gate walks' entries with their variant,
      columns a block and chain bound; the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
-     variant), the
+     variant; the popcount's with a `large` field and its design; the WKV
+     scan's at the f32 prefill, with `decode`, `model_layout` and
+     `model_layout_decode` fields, its design and launches by design), the
      card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Float32 products on the card run in full float32: TF32 is switched off
@@ -167,7 +184,9 @@ LOGIT_TOL = 1e-3
 # most u * (dh + 2T + 2) times the same recurrence run on absolute values
 # (u = eps/2: dh terms in each y sum, two roundings a token carried in the
 # state); the check allows eps * (dh + 2T + 4), twice that.
-WKV_FLOPS = 7                # per (row, token, i, j): kv, u*kv, S+, r*, +, w*S+
+# The factored recurrence's flops per (row, token, i, j): y's r*S and +,
+# the update's w*S, k*v and + (the bonus is one sum a token).
+WKV_FLOPS = 5
 
 
 def say(phase: str, **kw) -> None:
@@ -286,14 +305,17 @@ def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def wkv_bound_ms(BH: int, T: int, dh: int, with_s0: bool
+def wkv_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
+                 x_bytes: int = 4, u_rows: int | None = None
                  ) -> tuple[float, str]:
-    """Least time for the WKV-6 scan: r, k, v, w, u, s0 read once and y and
-    the final state written once (float32), against 7 flops per (row,
+    """Least time for the WKV-6 scan: r, k, v (`x_bytes` an element), w, u
+    (`u_rows` rows of dh, BH by default), s0 read once and y and the
+    final state written once (float32), against `WKV_FLOPS` per (row,
     token, i, j) at the float32 CUDA-core rate."""
-    n_floats = 5 * BH * T * dh + BH * dh + BH * dh * dh * (2 if with_s0
-                                                            else 1)
-    t_bytes = 4 * n_floats / PEAK_BYTES_PER_S
+    n_bytes = (3 * x_bytes + 4 + 4) * BH * T * dh \
+        + 4 * dh * (BH if u_rows is None else u_rows) \
+        + 4 * BH * dh * dh * (2 if with_s0 else 1)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = WKV_FLOPS * BH * T * dh * dh / PEAK_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -310,14 +332,15 @@ def popcount_bound_ms(B: int, W: int) -> tuple[float, str]:
 
 def wkv_check(args: tuple, stats: dict) -> None:
     """The WKV-6 kernel and its plain version on the card, each held to
-    the envelope around the float64 recurrence; folds the case into
-    `stats`."""
+    the envelope around the float64 recurrence, and the kernel run again
+    with its final state written in place over a copy of s0, which must
+    equal the first run bit for bit; folds the case into `stats`."""
     import torch
 
     from repro_torch.kernels import rwkv6_scan as WKV
 
     r, k, v, w, u, s0 = args
-    T, dh = r.shape[1], r.shape[2]
+    T, dh = r.shape[1], r.shape[-1]
     got = WKV.rwkv6_scan(*args)
     plain = WKV.rwkv6_scan_plain(*args)
     f64 = [None if a is None else a.double() for a in args]
@@ -326,12 +349,21 @@ def wkv_check(args: tuple, stats: dict) -> None:
     gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
     ratio = plain_ratio = 0.0
     for g, p, e, m in zip(got, plain, exact, env):
+        if not g.numel():
+            continue
         bound = gamma * m + 1e-30
         ratio = max(ratio, float(((g.double() - e).abs() / bound).max()))
         plain_ratio = max(plain_ratio,
                           float(((p.double() - e).abs() / bound).max()))
         stats["max_abs_err"] = max(stats["max_abs_err"],
                                    float((g - p).abs().max()))
+    if s0 is not None:
+        cache = s0.clone()
+        y2, s2 = WKV.rwkv6_scan(r, k, v, w, u, cache, cache)
+        stats["in_place_cases"] += 1
+        stats["in_place_not_bit_identical"] += int(
+            s2.data_ptr() != cache.data_ptr() or not torch.equal(y2, got[0])
+            or not torch.equal(cache, got[1]))
     torch.cuda.synchronize()
     stats["cases"] += 1
     stats["mismatches"] += int(ratio > 1)
@@ -340,19 +372,51 @@ def wkv_check(args: tuple, stats: dict) -> None:
                                          ratio)
 
 
-def wkv_vs_plain(dev, rng) -> dict:
-    """The WKV-6 grid of `kernel_vs_plain` on synthetic operands, plus
-    split runs that must equal one pass bit for bit."""
+def wkv_stats() -> dict:
+    return {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
+            "max_err_over_envelope": 0.0, "max_abs_err": 0.0,
+            "in_place_cases": 0, "in_place_not_bit_identical": 0}
+
+
+def model_layout(rng, dev, B, T, H, dh, dtype, offset=0):
+    """r, k, v as (B, T, H, dh) slices of one wider projection output
+    (token step 3 H dh + offset, starting `offset` elements in), w
+    (B, T, H, dh) float32 with decays log-uniform over (1e-12, 0.999),
+    u (H, dh): the model's layout, or with `offset` one off 16-byte
+    boundaries."""
     import torch
 
+    D = H * dh
+    big = torch.from_numpy(rng.standard_normal(
+        (B, T, 3 * D + offset), dtype=np.float32)).to(dev).to(dtype)
+    r, k, v = (big[..., offset + x * D: offset + (x + 1) * D]
+               .unflatten(-1, (H, dh)) for x in range(3))
+    w = torch.from_numpy(np.exp(rng.uniform(
+        np.log(1e-12), np.log(0.999), (B, T, H, dh))).astype(np.float32)
+    ).to(dev)
+    u = torch.from_numpy(rng.normal(0, 0.5, (H, dh)).astype(np.float32)
+                         ).to(dev)
+    return r, k, v, w, u
+
+
+def wkv_vs_plain(dev, rng) -> dict:
+    """The WKV-6 grid of `kernel_vs_plain`: synthetic `(BH, T, dh)`
+    float32 operands, and the model's `(B, T, H, dh)` layout (strided
+    bf16 and f32 views, u shared by the batch, T of 0, 1, 13 and 96, dh 16
+    and 64, decays down to 1e-12, with and without a state, the state also
+    written in place, and views off 16-byte boundaries); plus split runs
+    that must equal one pass bit for bit.  Cases are counted by the
+    staging design the plan picks."""
+    import torch
+
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
     from repro_torch.kernels import rwkv6_scan as WKV
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    stats = {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
-             "max_err_over_envelope": 0.0, "max_abs_err": 0.0,
-             "split_cases": 0, "split_max_abs_diff": 0.0}
+    stats = wkv_stats() | {"split_cases": 0, "split_max_abs_diff": 0.0,
+                           "designs": {d: 0 for d in CW.DESIGNS}}
     for BH in (1, 512):
         for T in (1, 7, 96, 512):
             for dh in (16, 64):
@@ -364,8 +428,22 @@ def wkv_vs_plain(dev, rng) -> dict:
                     s0 = t(rng.standard_normal((BH, dh, dh))) if with_s0 \
                         else None
                     wkv_check((r, k, v, w, u, s0), stats)
+                    stats["designs"][CW.plan(
+                        *(a.unsqueeze(2) for a in (r, k, v, w)),
+                        u.unsqueeze(1)).design] += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T, H, dh in ((8, 96, 64, 64), (8, 1, 64, 64), (3, 13, 5, 64),
+                            (2, 0, 3, 64), (4, 13, 4, 16), (1, 96, 2, 16)):
+            for offset in (0, 1):
+                for with_s0 in (False, True):
+                    args = model_layout(rng, dev, B, T, H, dh, dtype,
+                                        offset)
+                    s0 = t(rng.standard_normal((B, H, dh, dh))) \
+                        if with_s0 else None
+                    wkv_check((*args, s0), stats)
+                    stats["designs"][CW.plan(*args, s0).design] += 1
     for BH, T, dh, cut in ((512, 96, 64, 40), (1, 512, 16, 1),
-                           (512, 7, 64, 6)):
+                           (512, 7, 64, 6), (512, 96, 64, 13)):
         r, k, v = (t(rng.standard_normal((BH, T, dh))) for _ in range(3))
         w = t(rng.uniform(0.01, 0.999, (BH, T, dh)))
         u = t(rng.normal(0, 0.5, (BH, dh)))
@@ -383,23 +461,42 @@ def wkv_vs_plain(dev, rng) -> dict:
 
 
 def popcount_vs_plain(dev, rng) -> dict:
-    """The popcount kernel against its plain version, bit-exact."""
+    """The popcount kernel against its plain version, bit-exact: random
+    planes, every W from 0 to 64 at odd B and wider rows (both designs),
+    a word plane 4 bytes off a 16-byte boundary, and the edge words.
+    Cases are counted by design and by whether 16-byte loads ran."""
     import torch
 
+    from repro_torch.kernels import cuda_packed_popcount as CP
     from repro_torch.kernels import packed_popcount as PP
 
-    stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0}
-    planes = [rng.integers(0, 2 ** 32, shape, dtype=np.uint64)
-              .astype(np.uint32)
-              for shape in ((1, 1), (256, 17), (1000, 3), (65536, 32))]
-    planes.append(np.array([[0, 0xFFFFFFFF, 1, 0x80000000]], np.uint32))
-    for words in planes:
-        wt = torch.from_numpy(words.view(np.int32)).to(dev)
+    def words_of(shape):
+        return torch.from_numpy(rng.integers(0, 2 ** 32, shape,
+                                             dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    stats = {"cases": 0, "mismatches": 0, "max_abs_err": 0,
+             "designs": {d: 0 for d in CP.DESIGNS}, "vec16": 0,
+             "word_loads": 0}
+    planes = [words_of(shape) for shape in (
+        (1, 1), (256, 17), (1000, 3), (65536, 32), (65536, 9))]
+    planes += [words_of((B, W)) for W in range(65) for B in (1, 333)]
+    planes += [words_of((1001, W)) for W in (65, 100, 1000)]
+    for B, W in ((65536, 9), (333, 32), (1001, 70)):    # 4 bytes in
+        planes.append(words_of((B * W + 1,))[1:].view(B, W))
+    planes.append(torch.from_numpy(np.array([[0, 0xFFFFFFFF, 1, 0x80000000]],
+                                            np.uint32).view(np.int32))
+                  .to(dev))
+    for wt in planes:
         got, want = PP.packed_popcount(wt), PP.packed_popcount_plain(wt)
-        err = int((got.long() - want.long()).abs().max())
+        err = int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+        plan = CP.plan(*wt.shape, wt.data_ptr())
         stats["cases"] += 1
         stats["mismatches"] += int(err != 0 or got.shape != want.shape)
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        stats["designs"][plan.design] += 1
+        stats["vec16" if plan.vec16 else "word_loads"] += 1
     edge = int(got[0])
     torch.cuda.synchronize()
     if edge != 34:
@@ -638,12 +735,24 @@ def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
                  "CPU")
 
 
+def bh_first(args: tuple) -> tuple:
+    """Captured (B, T, H, dh) scan operands in the reference's (BH, T, dh)
+    float32 layout: u repeated for each b, the state (BH, dh, dh)."""
+    r, k, v, w, u, s0 = args
+    B, T, H, dh = r.shape
+    flat = [a.float().permute(0, 2, 1, 3).reshape(B * H, T, dh).contiguous()
+            for a in (r, k, v, w)]
+    return (*flat, u.repeat(B, 1),
+            None if s0 is None else s0.reshape(B * H, dh, dh).contiguous())
+
+
 def rwkv_phases(dev, cfg) -> dict:
     """`rwkv_serving` (with the check of the kernel on the model's own
     scan inputs) and `rwkv_cross_device` on `cfg`, a full-width bf16
-    RWKV-6 config; returns the counted `rwkv6_scan` launches, the
-    model-input check's stats and the captured prefill and decode scan
-    inputs for timing."""
+    RWKV-6 config; returns the counted `rwkv6_scan` launches (in total and
+    by staging design), the model-input check's stats and the captured
+    prefill and decode scan inputs for timing, in the model's layout and
+    in PR 13's `(BH, T, dh)` float32 one."""
     import torch
 
     from repro_torch.kernels import cuda_rwkv6_scan as CW
@@ -662,41 +771,48 @@ def rwkv_phases(dev, cfg) -> dict:
     engine = ServingEngine(cfg, params, max_batch=8, cache_len=256,
                            device=dev)
 
-    # warm-up, not counted: capture layer 0's scan operands in a prefill
-    # of 8 x 96 tokens and in the decode step after it
+    # warm-up, not counted: capture layer 0's scan operands (the model's
+    # own bf16 (B, T, H, dh) views, f32 decays, the (H, dh) bonus, and at
+    # decode the state the cache holds before the step) in a prefill of
+    # 8 x 96 tokens and in the decode step after it
     captured = []
-    real = ops.rwkv6_scan
+    real = ops.rwkv6_scan_heads
 
-    def capture(r, k, v, w, u, chunk=32, s0=None):
+    def capture(r, k, v, w, u, s0=None, s_out=None):
         if len(captured) < 2 and (not captured or s0 is not None):
             captured.append(tuple(None if a is None else a.clone()
                                   for a in (r, k, v, w, u, s0)))
-        return real(r, k, v, w, u, chunk, s0)
+        return real(r, k, v, w, u, s0, s_out)
 
-    ops.rwkv6_scan = capture
+    ops.rwkv6_scan_heads = capture
     try:
         engine.run([Request(uid=-1 - i, prompt=pr, max_new_tokens=2)
                     for i, pr in enumerate(prompts[8:])])
     finally:
-        ops.rwkv6_scan = real
-    if len(captured) != 2 or captured[0][0].shape[:2] != (8 * cfg.n_heads,
-                                                          96):
+        ops.rwkv6_scan_heads = real
+    if len(captured) != 2 or captured[0][0].shape[:3] != (8, 96,
+                                                          cfg.n_heads):
         fail("rwkv_serving: the warm-up did not capture a prefill and a "
              "decode scan")
-    mstats = {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
-              "max_err_over_envelope": 0.0, "max_abs_err": 0.0}
-    for args in captured:
+    # the same numbers in PR 13's (BH, T, dh) float32 layout, for timing
+    # rows comparable with its
+    flat = [bh_first(args) for args in captured]
+    mstats = wkv_stats()
+    for args in captured + flat:
         wkv_check(args, mstats)
     w = captured[0][3]
     mstats["decay_quantiles"] = torch.quantile(
         w.flatten()[:: max(1, w.numel() // 1_000_000)],
         torch.tensor([0.0, 0.01, 0.5, 0.99, 1.0], device=dev)).tolist()
     say("kernel_vs_plain", rwkv6_scan_model_inputs=mstats,
-        shapes=[list(a[0].shape) for a in captured])
-    if mstats["mismatches"] or mstats["plain_mismatches"]:
+        shapes=[list(a[0].shape) for a in captured + flat],
+        dtypes=[str(a[0].dtype) for a in captured + flat])
+    if mstats["mismatches"] or mstats["plain_mismatches"] or \
+            mstats["in_place_not_bit_identical"]:
         fail(f"rwkv6_scan on the model's inputs: {mstats['mismatches']} "
              f"kernel and {mstats['plain_mismatches']} plain cases leave "
-             "the f32 envelope")
+             f"the f32 envelope, {mstats['in_place_not_bit_identical']} "
+             "states in place differ")
 
     engine.stats = LMServeStats()
     reqs = [Request(uid=i, prompt=pr, max_new_tokens=32)
@@ -706,6 +822,7 @@ def rwkv_phases(dev, cfg) -> dict:
     CW.reset_launches()
     engine.run(reqs)
     launches = CW.LAUNCHES["rwkv6_scan"]
+    by_design = dict(CW.DESIGN_LAUNCHES)
     lm = engine.stats.summary()
     forwards = lm["prefills"] + lm["decode_steps"]
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -715,6 +832,7 @@ def rwkv_phases(dev, cfg) -> dict:
         vocab=cfg.vocab, params=P.param_count(cfg), weights_s=weights_s,
         requests=len(reqs), new_tokens=[len(r.output) for r in reqs],
         stats=lm, rwkv6_scan_launches=launches,
+        launches_by_design=by_design,
         expected=cfg.n_layers * forwards, logits_finite=finite,
         max_memory_allocated_bytes=peak_bytes)
     if any(len(r.output) != 32 for r in reqs):
@@ -723,6 +841,10 @@ def rwkv_phases(dev, cfg) -> dict:
         fail(f"rwkv_serving: rwkv6_scan launched {launches} times, expected "
              f"{cfg.n_layers * forwards} ({cfg.n_layers} x {forwards} "
              "forwards)")
+    if by_design["cp_async"] != launches:
+        fail(f"rwkv_serving: launches by staging design {by_design}, "
+             "expected every one through cp_async (the model's views are "
+             "16-byte aligned)")
     if not finite:
         fail("rwkv_serving: non-finite logits")
     del engine, params
@@ -741,33 +863,58 @@ def rwkv_phases(dev, cfg) -> dict:
         p32["layers"]["cm"][name].uniform_(0, 1, generator=gen)
     cross_device("rwkv_cross_device", cfg32, p32,
                   lm_rng.integers(1, cfg32.vocab, 16).tolist())
-    return {"launches": launches, "model_stats": mstats,
-            "captured": captured}
+    return {"launches": launches, "by_design": by_design,
+            "model_stats": mstats, "captured": captured, "flat": flat}
 
 
-def rwkv_popcount_timing(captured: list, pop_words: dict) -> tuple:
+def rwkv_popcount_timing(rwkv: dict, pop_words: dict,
+                         launch_floor_ms: float) -> tuple:
     """Kernel, plain version and bound of the WKV-6 scan on the captured
-    prefill and decode operands, and of the popcount on `pop_words`."""
+    prefill and decode operands (in PR 13's `(BH, T, dh)` float32 layout,
+    and in the model's own bf16 `(B, T, H, dh)` views, the decode state
+    written in place as the model does), and of the popcount on
+    `pop_words`, each row with its design and the launch floor."""
+    from repro_torch.kernels import cuda_packed_popcount as CP
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
     from repro_torch.kernels import packed_popcount as PP
     from repro_torch.kernels import rwkv6_scan as WKV
 
     wkv_rows = []
-    for step, args in zip(("prefill", "decode"), captured):
-        BH, T, dh = args[0].shape
-        row = {"step": step, "BH": BH, "T": T, "dh": dh,
-               "initial_state": args[5] is not None}
-        row["ms"] = gpu_ms(lambda: WKV.rwkv6_scan(*args), TIMED_REPS, True)
+    cases = [(step, "(BH, T, dh) float32", args, None)
+             for step, args in zip(("prefill", "decode"), rwkv["flat"])]
+    for step, args in zip(("prefill", "decode"), rwkv["captured"]):
+        s_out = None if args[5] is None else args[5].clone()
+        cases.append((step, "model (B, T, H, dh) bf16", args[:5] + (s_out,),
+                      s_out))
+    for step, layout, args, s_out in cases:
+        r, u, s0 = args[0], args[4], args[5]
+        T, dh = r.shape[1], r.shape[-1]
+        BH = r.numel() // (T * dh)
+        row = {"step": step, "layout": layout, "BH": BH, "T": T, "dh": dh,
+               "initial_state": s0 is not None,
+               "state_in_place": s_out is not None,
+               "design": CW.plan(*(a if a.dim() == 4 else a.unsqueeze(2)
+                                   for a in args[:4]),
+                                 u if r.dim() == 4 else u.unsqueeze(1)
+                                 ).design,
+               "launch_floor_ms": launch_floor_ms}
+        run = (lambda: WKV.rwkv6_scan(*args, s_out)) if s_out is not None \
+            else (lambda: WKV.rwkv6_scan(*args))
+        row["ms"] = gpu_ms(run, TIMED_REPS, True)
         row["plain_ms"] = gpu_ms(lambda: WKV.rwkv6_scan_plain(*args),
                                  PLAIN_REPS, False)
         row["bound_ms"], row["bound_by"] = wkv_bound_ms(
-            BH, T, dh, args[5] is not None)
+            BH, T, dh, s0 is not None, r.element_size(),
+            u.numel() // dh)
         row["library_ms"] = None
         wkv_rows.append(row)
         say("timing_rwkv", **row)
     pop_rows = []
     for name, words in pop_words.items():
         B, W = words.shape
-        row = {"words": name, "B": B, "W": W}
+        plan = CP.plan(B, W, words.data_ptr())
+        row = {"words": name, "B": B, "W": W, "design": plan.design,
+               "vec16": plan.vec16, "launch_floor_ms": launch_floor_ms}
         row["ms"] = gpu_ms(lambda: PP.packed_popcount(words), TIMED_REPS,
                            True)
         row["plain_ms"] = gpu_ms(lambda: PP.packed_popcount_plain(words),
@@ -1049,6 +1196,16 @@ def main() -> int:
     if wstats["split_max_abs_diff"]:
         fail(f"rwkv6_scan: a split run differs from one pass by "
              f"{wstats['split_max_abs_diff']:.3g}")
+    if wstats["in_place_not_bit_identical"]:
+        fail(f"rwkv6_scan: {wstats['in_place_not_bit_identical']} states "
+             "written in place differ from the run out of place")
+    for name, counts in (("rwkv6_scan", wstats["designs"]),
+                         ("packed_popcount", pstats["designs"]),
+                         ("packed_popcount loads", {
+                             k: pstats[k] for k in ("vec16", "word_loads")})):
+        for design, n in counts.items():
+            if not n:
+                fail(f"kernel_vs_plain ran no {name} case through {design}")
 
     # -- 4. main path, counted ----------------------------------------------
     CK.reset_launches()
@@ -1126,10 +1283,12 @@ def main() -> int:
     CP.reset_launches()
     counts = ops.packed_popcount(reading_words)
     pop_launches = CP.LAUNCHES["packed_popcount"]
+    pop_by_design = dict(CP.DESIGN_LAUNCHES)
     want = fire.sum(dim=1, dtype=torch.int32)
     say("popcount_path", readings=int(fire.shape[0]),
         words_per_reading=int(reading_words.shape[1]),
-        launches=pop_launches, counts_equal=bool(torch.equal(counts, want)),
+        launches=pop_launches, launches_by_design=pop_by_design,
+        counts_equal=bool(torch.equal(counts, want)),
         mean_firing=float(want.float().mean()))
     if not torch.equal(counts, want):
         fail("popcount_path: counts differ from the 0/1 matrix")
@@ -1248,10 +1407,13 @@ def main() -> int:
         say("timing_fleet", **row)
 
     tm_rows = ternary_timing(dev)
-    wkv_rows, pop_rows = rwkv_popcount_timing(rwkv["captured"], {
+    wkv_rows, pop_rows = rwkv_popcount_timing(rwkv, {
         "arrhythmia readings": reading_words,
         "random": torch.randint(-2 ** 31, 2 ** 31 - 1, (65536, 32),
-                                dtype=torch.int32, device=dev)})
+                                dtype=torch.int32, device=dev),
+        "random, large": torch.randint(-2 ** 31, 2 ** 31 - 1, (4194304, 9),
+                                       dtype=torch.int32, device=dev)},
+        launch_floor_ms)
 
     # -- 8. summary -----------------------------------------------------------
     main_row = next(r for r in timings
@@ -1323,25 +1485,50 @@ def main() -> int:
         {"name": "packed_popcount", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_popcount.cu",
          "replaces": "src/repro/kernels/packed_popcount.py:16",
-         "launches": pop_launches, "max_abs_err": pstats["max_abs_err"],
+         "launches": pop_launches, "launches_by_design": pop_by_design,
+         "max_abs_err": pstats["max_abs_err"],
          "ms": pop_rows[0]["ms"], "plain_ms": pop_rows[0]["plain_ms"],
          "bound_ms": pop_rows[0]["bound_ms"],
          "bound_by": pop_rows[0]["bound_by"], "library_ms": None,
-         "cases": pstats["cases"], "mismatches": pstats["mismatches"],
-         "shape": "65536 readings x 9 words"},
+         "launch_floor_ms": launch_floor_ms, "cases": pstats["cases"],
+         "mismatches": pstats["mismatches"],
+         "design": "rows: a thread a row over a run of 128 rows staged "
+                   "transposed in shared memory (W <= 64); warp: a warp a "
+                   "row (W > 64); 16-byte loads from 16-byte-aligned planes",
+         "shape": "65536 readings x 9 words",
+         "large": {k: pop_rows[2][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "design")} | {"shape": "4194304 x 9 random words"}},
         {"name": "rwkv6_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:34",
          "launches": rwkv["launches"],
+         "launches_by_design": rwkv["by_design"],
          "max_abs_err": max(wstats["max_abs_err"],
                             rwkv["model_stats"]["max_abs_err"]),
          "ms": wkv_rows[0]["ms"], "plain_ms": wkv_rows[0]["plain_ms"],
          "bound_ms": wkv_rows[0]["bound_ms"],
          "bound_by": wkv_rows[0]["bound_by"], "library_ms": None,
+         "launch_floor_ms": launch_floor_ms,
          "cases": wstats["cases"] + rwkv["model_stats"]["cases"],
          "mismatches": wstats["mismatches"]
          + rwkv["model_stats"]["mismatches"],
-         "shape": "rwkv6-7b prefill: BH 512, T 96, dh 64"},
+         "design": "a block a (b, h) row; an 8 x 8 tile of the state a "
+                   "thread; 8-token chunks in a 3-stage cp.async ring; "
+                   "partial sums added in a fixed order after each chunk",
+         "shape": "rwkv6-7b prefill: BH 512, T 96, dh 64, (BH, T, dh) f32",
+         "decode": {k: wkv_rows[1][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "design")} | {"shape": "decode: T 1 from a state, "
+                                    "(BH, T, dh) f32"},
+         "model_layout": {k: wkv_rows[2][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "design")} | {"shape": "prefill: (8, 96, 64, 64) bf16 views, "
+                                    "u (64, 64)"},
+         "model_layout_decode": {k: wkv_rows[3][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "design")} | {"shape": "decode: (8, 1, 64, 64) bf16 views, "
+                                    "state in place"}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

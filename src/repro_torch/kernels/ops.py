@@ -4,8 +4,11 @@ signatures (`repro/kernels/ops.py`).
 `ternary_matmul` takes activations of any leading shape; the kernel
 wrapper below it takes `(M, K)`.  `rwkv6_scan` also takes an initial
 state `s0`, which the reference's kernel lacks and the model's decode
-needs.  Each entry point runs by the device of its tensors: the plain
-PyTorch version on the CPU, the hand-written kernel on a CUDA device.
+needs; `rwkv6_scan_heads` is the same recurrence on the model's own
+`(B, T, H, dh)` views, with the final state written in place where the
+caller asks.  Each entry point runs by the device of its tensors: the
+plain PyTorch version on the CPU, the hand-written kernel on a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -47,3 +50,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s0 is not None:
         s0 = s0.float().contiguous()
     return WKV.rwkv6_scan(r, k, v, w, u, s0)
+
+
+def rwkv6_scan_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     s0: torch.Tensor | None = None,
+                     s_out: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """WKV-6 on the model's layout: r, k, v `(B, T, H, dh)` views in
+    float32 or bfloat16, w the same in float32, u `(H, dh)` [+ s0
+    `(B, H, dh, dh)`] -> `(y (B, T, H, dh), final state (B, H, dh, dh))`,
+    float32.  With `s_out` the final state is written there; it may be
+    `s0` (the decode cache updated in place)."""
+    return WKV.rwkv6_scan(r, k, v, w, u, s0, s_out)

@@ -4,9 +4,11 @@ The port of the RWKV-6 half of `repro.models.ssm` (Mamba comes with the
 hybrid slice).  The casts are the reference's: the streams, projections
 and decay logits run in the compute dtype, the decay `exp(-exp(.))` is
 taken in float32, and so is the WKV recurrence, which goes to
-`kernels.ops.rwkv6_scan` (on the card the hand-written kernel) with the
-heads folded into the batch axis.  The reference runs the same recurrence
-as a `lax.scan` over the sequence.
+`kernels.ops.rwkv6_scan_heads` (on the card the hand-written kernel) on
+the projections' own `(B, S, H, dh)` views, with no copy: r, k and v in
+the compute dtype, the decays in float32, the `(H, dh)` bonus shared by
+the batch.  The reference runs the same recurrence as a `lax.scan` over
+the sequence.
 """
 from __future__ import annotations
 
@@ -40,17 +42,14 @@ def _ddlerp(x, xx, mu, A, Bm):
     return x + d * (mu + lora)
 
 
-def _heads_first(t: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, H*dh) -> (B*H, S, dh) float32, contiguous."""
-    B, S, D = t.shape
-    return t.float().reshape(B, S, n_heads, D // n_heads) \
-        .transpose(1, 2).reshape(B * n_heads, S, D // n_heads).contiguous()
-
-
 def rwkv6_timemix(p: dict, x: torch.Tensor, n_heads: int,
-                  state: RWKVState | None
+                  state: RWKVState | None,
+                  wkv_out: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, last_x, new_wkv (B, H, dh, dh) f32)."""
+    """x: (B, S, D) -> (out, last_x, new_wkv (B, H, dh, dh) f32).
+
+    With `wkv_out`, the new WKV state is written there and returned; it
+    may be `state.wkv` (the decode cache updated in place)."""
     B, S, D = x.shape
     dh = D // n_heads
     xx = _shifted(x, None if state is None else state.shift_tm)
@@ -60,23 +59,23 @@ def rwkv6_timemix(p: dict, x: torch.Tensor, n_heads: int,
                        p[f"lora_B_{name}"])
 
     xr, xk, xv, xw, xg = (stream(n) for n in ("r", "k", "v", "w", "g"))
-    r = xr @ p["w_r"]["w"].to(x.dtype)
-    k = xk @ p["w_k"]["w"].to(x.dtype)
-    v = xv @ p["w_v"]["w"].to(x.dtype)
+    heads = (B, S, n_heads, dh)
+    r = (xr @ p["w_r"]["w"].to(x.dtype)).view(heads)
+    k = (xk @ p["w_k"]["w"].to(x.dtype)).view(heads)
+    v = (xv @ p["w_v"]["w"].to(x.dtype)).view(heads)
     g = F.silu(xg @ p["w_g"]["w"].to(x.dtype))
     # data-dependent decay per channel, in (0, 1)
     wdec = p["w0"].to(x.dtype) + torch.tanh(xw @ p["wA"].to(x.dtype)) \
         @ p["wB"].to(x.dtype)
-    wdec = torch.exp(-torch.exp(wdec.float()))
-    u = p["u"].float().reshape(n_heads, dh).repeat(B, 1)       # (B*H, dh)
-    s0 = None if state is None else state.wkv.reshape(B * n_heads, dh, dh)
-    y, s_fin = ops.rwkv6_scan(
-        _heads_first(r, n_heads), _heads_first(k, n_heads),
-        _heads_first(v, n_heads), _heads_first(wdec, n_heads), u, s0=s0)
-    y = y.reshape(B, n_heads, S, dh).transpose(1, 2).reshape(B, S, D)
-    y = rms_norm(y.to(x.dtype), p["gn_scale"], eps=1e-5)  # groupnorm ~ rms
+    wdec = torch.exp(-torch.exp(wdec.float())).view(heads)
+    u = p["u"].float().view(n_heads, dh)                       # bonus
+    y, s_fin = ops.rwkv6_scan_heads(
+        r, k, v, wdec, u, s0=None if state is None else state.wkv,
+        s_out=wkv_out)
+    # groupnorm ~ rms, as in the reference
+    y = rms_norm(y.view(B, S, D).to(x.dtype), p["gn_scale"], eps=1e-5)
     out = (y * g) @ p["w_o"]["w"].to(x.dtype)
-    return out, x[:, -1, :], s_fin.reshape(B, n_heads, dh, dh)
+    return out, x[:, -1, :], s_fin
 
 
 def rwkv6_channelmix(p: dict, x: torch.Tensor, state: RWKVState | None

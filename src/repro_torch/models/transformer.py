@@ -96,9 +96,11 @@ def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
 
 
 def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                state: SSM.RWKVState | None = None):
+                state: SSM.RWKVState | None = None,
+                wkv_out: torch.Tensor | None = None):
     h = _norm(cfg, lp["ln1"], x)
-    tm_out, last_tm, wkv = SSM.rwkv6_timemix(lp["tm"], h, cfg.n_heads, state)
+    tm_out, last_tm, wkv = SSM.rwkv6_timemix(lp["tm"], h, cfg.n_heads, state,
+                                             wkv_out)
     x = x + tm_out
     h2 = _norm(cfg, lp["ln2"], x)
     cm_out, last_cm = SSM.rwkv6_channelmix(lp["cm"], h2, state)
@@ -212,9 +214,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         for i in range(cfg.n_layers):
             st = SSM.RWKVState(cache["shift_tm"][i], cache["shift_cm"][i],
                                cache["wkv"][i])
-            x, new = _block_rwkv(cfg, _layer(params["layers"], i), x, st)
-            for name, t in zip(SSM.RWKVState._fields, new):
-                cache[name][i] = t
+            # the WKV state is updated in place; the token shifts copied
+            x, (last_tm, last_cm, _) = _block_rwkv(
+                cfg, _layer(params["layers"], i), x, st, wkv_out=st.wkv)
+            cache["shift_tm"][i] = last_tm
+            cache["shift_cm"][i] = last_cm
         x = _norm(cfg, params["final_norm"], x)
         return logits_from_hidden(cfg, params, x), cache
     dev = x.device

@@ -293,6 +293,132 @@ def test_rwkv_engine_scans_run_through_the_kernel(cuda):
     assert CW.LAUNCHES["rwkv6_scan"] == cfg.n_layers * forwards
 
 
+@pytest.mark.parametrize("W", [0, 1, 2, 3, 4, 5, 8, 9, 17, 31, 32, 33, 63,
+                               64, 65, 100, 1000])
+def test_packed_popcount_every_design_bit_exact(cuda, W):
+    """Odd B, so a `rows` block's run and the flat stream end mid-vector;
+    W > 64 runs the `warp` design."""
+    B = 333
+    rng = np.random.default_rng(W)
+    wt = torch.from_numpy(rng.integers(0, 2 ** 32, (B, W), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)).to(cuda)
+    design = CP.plan(B, W, wt.data_ptr()).design
+    assert design == ("rows" if W <= CP.ROWS_MAX_W else "warp")
+    before = CP.DESIGN_LAUNCHES[design]
+    got = PP.packed_popcount(wt)
+    assert CP.DESIGN_LAUNCHES[design] == before + 1
+    torch.testing.assert_close(got, PP.packed_popcount_plain(wt), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("B,W", [(65536, 9), (333, 32), (1001, 70)])
+def test_packed_popcount_plane_off_a_16_byte_boundary(cuda, B, W):
+    """A contiguous view 4 bytes into its storage loads word by word."""
+    rng = np.random.default_rng(B + W)
+    flat = torch.from_numpy(rng.integers(0, 2 ** 32, B * W + 1,
+                                         dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(cuda)
+    wt = flat[1:].view(B, W)
+    assert wt.is_contiguous() and not CP.plan(B, W, wt.data_ptr()).vec16
+    torch.testing.assert_close(PP.packed_popcount(wt),
+                               PP.packed_popcount_plain(wt), rtol=0, atol=0)
+
+
+def _model_layout(cuda, rng, B, T, H, dh, dtype, offset=0):
+    """r, k, v as (B, T, H, dh) slices of one wider projection (starting
+    `offset` elements in), w float32 with decays log-uniform over
+    (1e-12, 0.999), u (H, dh)."""
+    D = H * dh
+    big = torch.from_numpy(rng.standard_normal(
+        (B, T, 3 * D + offset)).astype(np.float32)).to(cuda).to(dtype)
+    r, k, v = (big[..., offset + x * D: offset + (x + 1) * D]
+               .unflatten(-1, (H, dh)) for x in range(3))
+    w = torch.from_numpy(np.exp(rng.uniform(
+        np.log(1e-12), np.log(0.999), (B, T, H, dh))).astype(np.float32)
+    ).to(cuda)
+    u = torch.from_numpy(rng.normal(0, 0.5, (H, dh)).astype(np.float32)
+                         ).to(cuda)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,H,dh", [(8, 96, 64, 64), (8, 1, 64, 64),
+                                      (3, 13, 5, 64), (2, 0, 3, 64),
+                                      (4, 13, 4, 16), (1, 96, 2, 16)])
+def test_rwkv6_scan_model_layout_inside_f32_envelope(cuda, B, T, H, dh,
+                                                     dtype, offset):
+    """The model's (B, T, H, dh) views (strided, bf16 or f32, u shared by
+    the batch, T past and short of a chunk, T = 0, decays down to 1e-12),
+    from a state: the kernel inside the envelope of the float64
+    recurrence, as `test_rwkv6_scan_kernel_inside_f32_envelope` holds it;
+    off a 16-byte boundary (T > 0) it stages element by element."""
+    rng = np.random.default_rng(B * T + H + dh + offset)
+    args = _model_layout(cuda, rng, B, T, H, dh, dtype, offset)
+    s0 = torch.from_numpy(rng.standard_normal((B, H, dh, dh))
+                          .astype(np.float32)).to(cuda)
+    design = CW.plan(*args, s0).design
+    if T:                            # an empty view's address says nothing
+        assert design == ("element" if offset else "cp_async")
+    before = CW.DESIGN_LAUNCHES[design]
+    y, s = WKV.rwkv6_scan(*args, s0)
+    assert CW.DESIGN_LAUNCHES[design] == before + 1
+    f64 = [a.double() for a in (*args, s0)]
+    exact = WKV.rwkv6_scan_plain(*f64)
+    env = WKV.rwkv6_scan_plain(*[a.abs() for a in f64])
+    gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
+    for g, e, m in zip((y, s), exact, env):
+        assert ((g.double() - e).abs() <= gamma * m).all()
+
+
+@pytest.mark.parametrize("T", [1, 13, 96])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_scan_state_in_place_bit_identical(cuda, T, dtype):
+    """The final state written over s0 (the decode cache) equals the run
+    into a fresh state, bit for bit, and y too."""
+    rng = np.random.default_rng(T)
+    args = _model_layout(cuda, rng, 8, T, 64, 64, dtype)
+    s0 = torch.from_numpy(rng.standard_normal((8, 64, 64, 64))
+                          .astype(np.float32)).to(cuda)
+    y, s = WKV.rwkv6_scan(*args, s0)
+    cache = s0.clone()
+    y2, s2 = WKV.rwkv6_scan(*args, cache, cache)
+    assert s2 is cache
+    assert torch.equal(y2, y) and torch.equal(cache, s)
+
+
+def test_rwkv6_scan_model_layout_split_equals_one_pass(cuda):
+    """A split off the chunk boundaries, in the model's layout."""
+    rng = np.random.default_rng(12)
+    r, k, v, w, u = _model_layout(cuda, rng, 8, 96, 64, 64, torch.bfloat16)
+    y, s = WKV.rwkv6_scan(r, k, v, w, u)
+    y1, s1 = WKV.rwkv6_scan(r[:, :13], k[:, :13], v[:, :13], w[:, :13], u)
+    y2, s2 = WKV.rwkv6_scan(r[:, 13:], k[:, 13:], v[:, 13:], w[:, 13:], u,
+                            s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(s2, s)
+
+
+def test_rwkv_decode_updates_the_cache_in_place(cuda):
+    """A decode step writes each layer's WKV state into the cache it was
+    given, through the kernel's cp.async staging."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("rwkv6-7b").reduced()
+    params = init_params(cfg, 0, cuda)
+    with torch.inference_mode():
+        _, cache = TF.prefill(cfg, params, {"tokens": torch.tensor(
+            [[1, 2, 3], [4, 5, 6]], device=cuda)}, 16)
+        wkv, before = cache["wkv"], cache["wkv"].clone()
+        CW.reset_launches()
+        TF.decode_step(cfg, params, cache, torch.tensor([[7], [8]],
+                                                        device=cuda), 3)
+    assert cache["wkv"] is wkv and not torch.equal(wkv, before)
+    assert CW.DESIGN_LAUNCHES == {"cp_async": cfg.n_layers, "element": 0}
+
+
 PAST_LIMIT = 30_000     # dead gates that push a plan past shared memory
 
 

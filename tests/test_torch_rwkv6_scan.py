@@ -130,5 +130,20 @@ def test_operand_checks():
         WKV.rwkv6_scan(r, k, v, w, u[:1])
     with pytest.raises(ValueError, match="s0 must be"):
         WKV.rwkv6_scan(r, k, v, w, u, torch.zeros((2, 16, 8)))
+    # strided rows and tokens are taken; the last dimension must be
+    # contiguous and heads dh apart
     with pytest.raises(ValueError, match="contiguous"):
-        WKV.rwkv6_scan(r.transpose(0, 1), k, v, w, u)
+        WKV.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k,
+                       v, w, u)
+    with pytest.raises(TypeError, match="like r"):
+        WKV.rwkv6_scan(r, k.bfloat16(), v, w, u)
+    with pytest.raises(TypeError, match="float32"):
+        WKV.rwkv6_scan(r.bfloat16(), k.bfloat16(), v.bfloat16(),
+                       w.bfloat16(), u)
+    r4, k4, v4, w4 = (a.reshape(1, 2, 4, 16).transpose(1, 2)
+                      for a in (r, k, v, w))              # heads 64 apart
+    with pytest.raises(ValueError, match="heads"):
+        WKV.rwkv6_scan(r4, k4, v4, w4, u)
+    with pytest.raises(ValueError, match="s_out must be contiguous"):
+        WKV.rwkv6_scan(r, k, v, w, u, None,
+                       torch.zeros((2, 16, 16)).transpose(1, 2))

@@ -85,6 +85,46 @@ def test_forward_prefill_decode_match_reference():
         _close(cache[name], rcache[name])
 
 
+def test_decode_updates_the_wkv_cache_in_place(monkeypatch):
+    """Each layer's recurrence writes its final state straight into the
+    cache it read (`s0` and `s_out` are `cache["wkv"][i]`), so the step
+    leaves the cache tensors where they were, with the reference's
+    values."""
+    from repro_torch.kernels import ops
+
+    cfg = reduced()
+    tree = rwkv_numpy_tree(cfg, seed=3)
+    rp = jax.tree.map(jnp.asarray, tree)
+    tp = P.params_from_reference(tree, device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (2, 4))
+    with torch.inference_mode():
+        _, cache = TF.prefill(cfg, tp, {"tokens": torch.from_numpy(tokens)},
+                              16)
+    _, rcache = RTF.prefill(cfg, rp, {"tokens": jnp.asarray(tokens,
+                                                             jnp.int32)}, 16)
+    held = {name: (t, t.data_ptr()) for name, t in cache.items()}
+    seen = []
+    real = ops.rwkv6_scan_heads
+
+    def spy(r, k, v, w, u, s0=None, s_out=None):
+        seen.append((s0.data_ptr(), s_out.data_ptr()))
+        return real(r, k, v, w, u, s0, s_out)
+
+    monkeypatch.setattr(ops, "rwkv6_scan_heads", spy)
+    tok = np.array([[3], [9]])
+    with torch.inference_mode():
+        _, out = TF.decode_step(cfg, tp, cache, torch.from_numpy(tok), 4)
+    _, rcache = RTF.decode_step(cfg, rp, rcache, jnp.asarray(tok, jnp.int32),
+                                jnp.int32(4))
+    assert out is cache
+    for name, (t, ptr) in held.items():
+        assert cache[name] is t and t.data_ptr() == ptr
+        _close(cache[name], rcache[name])
+    wkv = cache["wkv"]
+    assert seen == [(wkv[i].data_ptr(), wkv[i].data_ptr())
+                    for i in range(cfg.n_layers)]
+
+
 def test_cache_matches_reference_layout():
     cfg, rcfg = reduced(), ref_get_config("rwkv6-7b").reduced()
     assert TF.cache_spec(cfg, 128) == tuple(RTF.cache_spec(rcfg, 128))

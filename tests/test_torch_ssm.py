@@ -118,27 +118,38 @@ def test_channelmix_matches_reference(with_state, S):
 
 
 def test_timemix_sends_its_recurrence_through_ops(monkeypatch):
-    """The time-mix's WKV goes to `ops.rwkv6_scan`, heads folded into the
-    batch: (B*H, S, dh) operands, u expanded to (B*H, dh)."""
+    """The time-mix's WKV goes to `ops.rwkv6_scan_heads` on the
+    projections' own (B, S, H, dh) views in the compute dtype, with no
+    head-major copy, u as one (H, dh) bonus for the batch; with
+    `wkv_out`, the state is written there (here the given state's own
+    tensor, as the decode step does)."""
     from repro_torch.kernels import ops
 
     cfg = reduced()
     tm = _layer0(rwkv_numpy_tree(cfg, seed=3))["layers"]["tm"]
     seen = []
-    real = ops.rwkv6_scan
+    real = ops.rwkv6_scan_heads
 
-    def spy(r, k, v, w, u, chunk=32, s0=None):
-        seen.append((tuple(r.shape), tuple(u.shape), s0 is None,
-                     float(w.min()), float(w.max())))
-        return real(r, k, v, w, u, chunk, s0)
+    def spy(r, k, v, w, u, s0=None, s_out=None):
+        seen.append((tuple(r.shape), r.stride(), r.dtype, tuple(u.shape),
+                     s0, s_out, float(w.min()), float(w.max())))
+        return real(r, k, v, w, u, s0, s_out)
 
-    monkeypatch.setattr(ops, "rwkv6_scan", spy)
-    x = torch.from_numpy(np.random.default_rng(0).normal(
-        0, 1, (2, 5, cfg.d_model)).astype(np.float32))
-    SSM.rwkv6_timemix(P.params_from_reference(tm, device="cpu"), x,
-                      cfg.n_heads, None)
+    monkeypatch.setattr(ops, "rwkv6_scan_heads", spy)
+    B, S, D = 2, 5, cfg.d_model
     H, dh = cfg.n_heads, cfg.head_dim
-    assert len(seen) == 1
-    shape, ushape, no_state, w_min, w_max = seen[0]
-    assert shape == (2 * H, 5, dh) and ushape == (2 * H, dh) and no_state
-    assert 0 < w_min < w_max < 1
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (B, S, D)).astype(np.float32))
+    port_p = P.params_from_reference(tm, device="cpu")
+    SSM.rwkv6_timemix(port_p, x, cfg.n_heads, None)
+    st = SSM.RWKVState(*(torch.from_numpy(a) for a in _state(cfg, B, 4)))
+    wkv = st.wkv
+    _, _, new = SSM.rwkv6_timemix(port_p, x, cfg.n_heads, st, wkv_out=wkv)
+    assert len(seen) == 2
+    for (shape, stride, dtype, ushape, s0, s_out, w_min, w_max), state in \
+            zip(seen, (None, wkv)):
+        assert shape == (B, S, H, dh) and stride == (S * D, D, dh, 1)
+        assert dtype == x.dtype and ushape == (H, dh)
+        assert s0 is state and s_out is state
+        assert 0 < w_min < w_max < 1
+    assert new is wkv
