@@ -64,6 +64,29 @@ package) and prints one JSON object per phase:
      counts the binarized features that fire in each of 65,536 arrhythmia
      readings (packed one row a reading, 9 words) and must equal the
      count of the 0/1 matrix;
+  4b. `campaign` — the paper's Phases 1-3 on arrhythmia's golden TNN
+     (`tests/golden_emit/arrhythmia_tnn.npz`) at full width, through the
+     port's entry points, with the launch counters zeroed first: a CGP
+     popcount library for each size (3, 52, 55, 127, 130; 2**17 vectors
+     above 16 inputs, the reference's grid; the budget cut to
+     `CAMPAIGN_POINTS` tau points a metric x `CAMPAIGN_ITERS`
+     generations), the PCC library over 30,000 samples, and NSGA-II
+     (`configs/tnn_paper`: pop 32 x 60 generations) through
+     `TNNApproxProblem.optimize`, then `decode` and `tnn_hw_cost` of the
+     front.  Each objective call must be one `fused_eval_uint` launch and
+     no schedule may be built during the search; launches are reported
+     by phase and variant.  The kernel against its plain version on the
+     card, bit for bit, at the two launch shapes it times: an objective
+     call (pop 32) and four CGP children at n = 130.  Card against CPU,
+     bit for bit: the n = 130 truncation sweep's errors, a CGP library
+     of one size at a small budget with its evaluations, one PCC size's
+     entries, every population the search scored, a short NSGA-II run,
+     each front design's error against its decoded circuits, and the
+     exact circuits against the integer path.  Printed: each phase's
+     seconds, CGP evaluations/s, objective individuals/s (pop 32 over an
+     objective call's p50 on the host's clock), the objective launch and
+     a CGP children launch (kernel, plain version, bound) and the
+     kernel's share of an objective call;
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
@@ -120,7 +143,9 @@ package) and prints one JSON object per phase:
      readings x 9 and x 32 words, and 4,194,304 x 9 random words); no
      single PyTorch call computes either, so their `library_ms` is null;
   8. the `kernels` line (the gate walks' entries with their variant,
-     columns a block and chain bound; the ternary matmul's entry at decode
+     columns a block and chain bound, `fused_eval_uint`'s with a
+     `campaign` field: its launches by phase and the two campaign
+     launches timed; the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
      variant; the popcount's with a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
@@ -180,6 +205,14 @@ PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
 # layers that stays far below 1e-3 on logits of order 1.
 LOGIT_TOL = 1e-3
+# The campaign phase's cut of the reference's Phase-1 budget (3 tau points
+# a metric x 500 generations in `build_tnn_problem`): 2 points a metric x
+# CAMPAIGN_ITERS generations; widths, vector sets and the PCC samples are
+# the reference's.  The CPU re-runs one size at CAMPAIGN_CPU_ITERS.
+CAMPAIGN_POINTS = 2
+CAMPAIGN_ITERS = 300
+CAMPAIGN_PCC_SAMPLES = 30_000
+CAMPAIGN_CPU_ITERS = 20
 # WKV-6 envelope: first-order rounding of the recurrence in float32 is at
 # most u * (dh + 2T + 2) times the same recurrence run on absolute values
 # (u = eps/2: dh terms in each y sum, two roundings a token carried in the
@@ -277,16 +310,21 @@ def gpu_ms(fn, reps: int, isolate: bool) -> float:
     return float(np.median(times))
 
 
-def bound_ms(programs: list[tuple[int, int, int, int]],
-             decode: bool) -> tuple[float, str]:
+def bound_ms(programs: list[tuple[int, int, int, int]], decode: bool,
+             shared_plane: bool = False) -> tuple[float, str]:
     """Least time for the work of single-program walks `(n_in, G, n_out, W)`:
     each input byte read once (word plane, plan) and each output byte
     written once, over HBM bandwidth, against 6 int ops per gate per word
-    over the CUDA-core peak.  Returns (ms, "bytes" | "operations")."""
+    over the CUDA-core peak.  With `shared_plane` the programs read one
+    `(n_in, W)` plane, counted once.  Returns (ms, "bytes" | "operations")."""
     n_bytes = n_ops = 0
+    if shared_plane:
+        (n_in, W), = {(p[0], p[3]) for p in programs}
+        n_bytes += n_in * W * 4
     for n_in, G, n_out, W in programs:
         out = W * 32 * 4 if decode else n_out * W * 4
-        n_bytes += n_in * W * 4 + out + (3 * G + n_out) * 4
+        plane = 0 if shared_plane else n_in * W * 4
+        n_bytes += plane + out + (3 * G + n_out) * 4
         n_ops += OPS_PER_GATE_WORD * G * W
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -700,6 +738,274 @@ def lm_phases(dev, cfg16) -> dict:
     return {"launches": tm_launches, "by_variant": by_variant}
 
 
+def same_netlists(a: list, b: list) -> bool:
+    """Two netlist lists equal gate for gate, with equal names and meta."""
+    return len(a) == len(b) and all(
+        x.n_inputs == y.n_inputs and x.name == y.name and x.meta == y.meta
+        and all(np.array_equal(getattr(x, k), getattr(y, k))
+                for k in ("op", "in0", "in1", "outputs"))
+        for x, y in zip(a, b))
+
+
+def campaign_phase(dev, smi: str) -> dict:
+    """`campaign` — the paper's Phases 1-3 on arrhythmia's golden TNN at
+    full width through the port's entry points, counted, then held against
+    the CPU bit for bit; returns the launches, timings and checks."""
+    import torch
+
+    from repro_torch.configs.tnn_paper import get_tnn_config
+    from repro_torch.core import cgp, pcc
+    from repro_torch.core import tnn as T
+    from repro_torch.core.circuits import NetlistPopulation, eval_vectors
+    from repro_torch.core.nsga2 import NSGA2Config
+    from repro_torch.core.ternary import abc_binarize
+    from repro_torch.data.tabular import make_dataset
+    from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_circuit_sim as CK
+
+    cfg = get_tnn_config("arrhythmia")
+    tnn = T.load_tnn(EMIT_DIR / "arrhythmia_tnn.npz")
+    ds = make_dataset("arrhythmia")
+    xb = abc_binarize(ds.x_train, tnn.thresholds, device=dev)
+    sizes, pcc_sizes = set(), []
+    for p, n in tnn.hidden_sizes():
+        if p >= 1 and n >= 1:
+            sizes.update([p, n])
+            pcc_sizes.append((p, n))
+    out_n = max(tnn.out_nnz, 1)
+    sizes.add(out_n)
+    pcc_sizes = sorted(set(pcc_sizes))
+
+    CK.reset_launches()
+    counts = {}
+
+    def take_counts(name: str) -> None:
+        counts[name] = {"launches": dict(CK.LAUNCHES),
+                        "by_variant": dict(CK.VARIANT_LAUNCHES),
+                        "schedule_launches": dict(CK.SCHEDULE_LAUNCHES)}
+
+    # Phase 1: a CGP popcount library for every size, the reference's grid
+    t0 = time.perf_counter()
+    pc_libs, runs, size_s = {}, {}, {}
+    for n in sorted(sizes):
+        runs[n] = []
+        t = time.perf_counter()
+        pc_libs[n] = cgp.evolve_pc_library(
+            n, n_points=CAMPAIGN_POINTS, max_iters=CAMPAIGN_ITERS, device=dev,
+            results=runs[n])
+        size_s[n] = time.perf_counter() - t
+    phase1_s = time.perf_counter() - t0
+    take_counts("phase1")
+    evaluations = sum(r.evaluations for rs in runs.values() for r in rs)
+    generations = CAMPAIGN_ITERS * sum(len(rs) for rs in runs.values())
+    # Phase 2: the PCC library over 30,000 sampled pairs a size
+    t0 = time.perf_counter()
+    pcc_lib = pcc.build_pcc_library(pcc_sizes, pc_libs,
+                                    n_samples=CAMPAIGN_PCC_SAMPLES,
+                                    device=dev)
+    pc_out = pcc.pc_pareto(pc_libs[out_n])
+    phase2_s = time.perf_counter() - t0
+    take_counts("phase2")
+    # Phase 3: NSGA-II over the per-neuron choices; every objective call
+    # is recorded and must be one launch that builds no schedule
+    t0 = time.perf_counter()
+    prob = T.TNNApproxProblem(tnn=tnn, pcc_lib=pcc_lib, pc_out_lib=pc_out,
+                              xbin=xb, y=ds.y_train, device=dev)
+    setup_s = time.perf_counter() - t0
+    take_counts("problem")
+    scored, per_call, walls = [], [], []
+    objective = prob.objective
+
+    def counted(pop):
+        before = CK.LAUNCHES["fused_eval_uint"]
+        t = time.perf_counter()
+        f = objective(pop)
+        walls.append(time.perf_counter() - t)
+        per_call.append(CK.LAUNCHES["fused_eval_uint"] - before)
+        scored.append((np.array(pop), f))
+        return f
+
+    prob.objective = counted       # what `optimize` hands to NSGA-II
+    t0 = time.perf_counter()
+    res = prob.optimize(NSGA2Config(pop_size=cfg.nsga_pop,
+                                    n_generations=cfg.nsga_generations,
+                                    seed=SEED))
+    phase3_s = time.perf_counter() - t0
+    take_counts("phase3")
+    del prob.objective
+    front = []
+    for x, f in zip(res.pareto_x, res.pareto_f):
+        cost = T.tnn_hw_cost(tnn, *prob.decode(x))
+        front.append({"genes": x.tolist(), "error": float(f[0]),
+                      "est_area_mm2": float(f[1]),
+                      "area_mm2": cost.area_mm2, "power_mw": cost.power_mw})
+    exact_cost = T.tnn_hw_cost(tnn, *T.exact_netlists(tnn))
+    individuals = sum(p.shape[0] for p, _ in scored)
+
+    # the kernel's share of an objective call: the launch alone (CUDA
+    # events) against the call on the host's clock, at a population of
+    # nsga_pop random individuals
+    pop = np.random.default_rng(SEED).integers(
+        0, prob.domains()[None, :], size=(cfg.nsga_pop, prob.n_genes))
+    args = prob.launch_args(pop)
+    checks = {"objective_launch": torch.equal(
+        CK.fused_eval_uint(*args), CS.population_eval_uint(*args[:6]))}
+    kernel_ms = gpu_ms(lambda: CK.fused_eval_uint(*args), TIMED_REPS, True)
+    plain_ms = gpu_ms(lambda: CS.population_eval_uint(*args[:6]),
+                      PLAIN_REPS, False)
+    call_ms = []
+    for _ in range(TIMED_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prob.objective(pop)
+        call_ms.append((time.perf_counter() - t) * 1e3)
+    rows = [prob.out_cands[int(k)] for k in pop[:, len(prob.hidden_idx):]
+            .reshape(-1)]
+    W = args[4].shape[-1]
+    obj_bound = bound_ms([(nl.n_inputs, nl.n_gates, nl.n_outputs, W)
+                          for nl in rows], True)
+    # Phase 1's launch shape at the widest size: lambda = 4 children of the
+    # 933-node grid over 2**17 vectors, the kernel alone with a schedule,
+    # and one fitness call as a generation pays it (schedule built on the
+    # card, errors reduced on it, two arrays to the host)
+    n_big = max(sizes)
+    packed, true = eval_vectors(n_big)
+    kid_nls = (pc_libs[n_big] * 4)[:4]
+    kids = NetlistPopulation.from_netlists(kid_nls)
+    plan = [torch.from_numpy(a).to(dev) for a in CS.check_plan(
+        kids.op, kids.in0, kids.in1, kids.outputs, n_big)]
+    words = CS.words_tensor(CS.pack_words32(packed), dev)
+    true_dev = torch.from_numpy(true).to(dev)
+    sched = CK.schedule(*plan[:3], n_big, device=dev)
+    checks["cgp_launch"] = torch.equal(
+        CK.fused_eval_uint(*plan, words, n_big, schedule=sched),
+        CS.population_eval_uint(*plan, words, n_big))
+    cgp_kernel_ms = gpu_ms(lambda: CK.fused_eval_uint(*plan, words, n_big,
+                                                      schedule=sched),
+                           TIMED_REPS, True)
+    cgp_plain_ms = gpu_ms(lambda: CS.population_eval_uint(*plan, words,
+                                                          n_big), 1, False)
+    fitness_ms = []
+    for _ in range(TIMED_REPS):
+        t = time.perf_counter()
+        kids.pc_errors(words, true_dev, device=dev)
+        fitness_ms.append((time.perf_counter() - t) * 1e3)
+    cgp_bound = bound_ms([(n_big, nl.n_gates, nl.n_outputs, words.shape[1])
+                          for nl in kid_nls], True, shared_plane=True)
+
+    # held against the CPU, bit for bit: the widest size's truncation
+    # sweep (one launch of n - 2 rows), then a CGP run, a PCC size, every
+    # population NSGA-II scored and a short search
+    trunc_dev, trunc_cpu = (cgp._truncation_stats(n_big, packed, true, d)
+                            for d in (dev, "cpu"))
+    checks["truncation_sweep"] = [r[1:] for r in trunc_dev] == [
+        r[1:] for r in trunc_cpu]
+    cpu_runs, dev_runs = [], []
+    small = min(n for n in sizes if n > 16)
+    lib_cpu = cgp.evolve_pc_library(small, n_points=1,
+                                    max_iters=CAMPAIGN_CPU_ITERS,
+                                    device="cpu", results=cpu_runs)
+    lib_dev = cgp.evolve_pc_library(small, n_points=1,
+                                    max_iters=CAMPAIGN_CPU_ITERS, device=dev,
+                                    results=dev_runs)
+    checks["cgp_library"] = same_netlists(lib_cpu, lib_dev) and [
+        r.evaluations for r in cpu_runs] == [r.evaluations for r in dev_runs]
+    size = pcc_sizes[0]
+    e_cpu = pcc.build_pcc_library([size], pc_libs, CAMPAIGN_PCC_SAMPLES,
+                                  device="cpu").get(*size)
+    e_dev = pcc_lib.get(*size)
+    checks["pcc_entries"] = [
+        (e.mde, e.wcde, e.correct_frac, e.est_area, e.pc_pos.name,
+         e.pc_neg.name) for e in e_cpu] == [
+        (e.mde, e.wcde, e.correct_frac, e.est_area, e.pc_pos.name,
+         e.pc_neg.name) for e in e_dev]
+    prob_cpu = T.TNNApproxProblem(tnn=tnn, pcc_lib=pcc_lib, pc_out_lib=pc_out,
+                                  xbin=xb.cpu(), y=ds.y_train, device="cpu")
+    checks["objective"] = all(np.array_equal(prob_cpu.objective(p), f)
+                              for p, f in scored)
+    short = NSGA2Config(pop_size=16, n_generations=4, seed=SEED + 1)
+    r_cpu, r_dev = prob_cpu.optimize(short), prob.optimize(short)
+    checks["nsga2_archive"] = bool(
+        np.array_equal(r_cpu.pareto_x, r_dev.pareto_x)
+        and np.array_equal(r_cpu.pareto_f, r_dev.pareto_f)
+        and r_cpu.history == r_dev.history)
+    # each front design's error is its decoded circuits' error, one
+    # netlist at a time on the card, and the exact circuits give the
+    # integer path's labels
+    xb_host = xb.cpu().numpy()
+    checks["front_error"] = all(
+        r["error"] == 1.0 - float((T.predict_with_circuits(
+            tnn, xb_host, *prob.decode(x), device=dev) == ds.y_train).mean())
+        for r, x in zip(front, res.pareto_x))
+    checks["exact_circuits"] = bool(np.array_equal(
+        T.predict_with_circuits(tnn, xb_host, *T.exact_netlists(tnn),
+                                device=dev),
+        T.predict_exact(tnn, xb_host)))
+
+    out = {
+        "nvidia_smi": smi, "tnn": "tests/golden_emit/arrhythmia_tnn.npz",
+        "topology": list(tnn.topology), "hidden_sizes": tnn.hidden_sizes(),
+        "out_nnz": tnn.out_nnz, "train_rows": int(ds.y_train.shape[0]),
+        "pc_sizes": sorted(sizes), "pcc_sizes": pcc_sizes,
+        "budget": {"n_points": CAMPAIGN_POINTS, "max_iters": CAMPAIGN_ITERS,
+                   "pcc_samples": CAMPAIGN_PCC_SAMPLES,
+                   "nsga_pop": cfg.nsga_pop,
+                   "nsga_generations": cfg.nsga_generations,
+                   "reference_default": "n_points 3 (3 tau points a "
+                   "metric) x max_iters 500 (build_tnn_problem)"},
+        "seconds": {"phase1": phase1_s, "phase2": phase2_s,
+                    "problem_build": setup_s, "phase3": phase3_s},
+        "phase1": {"tau_points": sum(len(r) for r in runs.values()),
+                   "generations": generations, "evaluations": evaluations,
+                   "evaluations_per_s": evaluations / phase1_s,
+                   "generations_per_s": generations / phase1_s,
+                   "seconds_by_size": size_s,
+                   "library_sizes": {n: len(v) for n, v in pc_libs.items()}},
+        "phase2": {"entries": {f"{p}x{n}": len(v)
+                               for (p, n), v in pcc_lib.entries.items()},
+                   "pc_out": len(pc_out)},
+        "phase3": {"objective_calls": len(scored),
+                   "individuals": individuals,
+                   "objective_s": sum(walls),
+                   "objective_p50_ms": float(np.median(walls)) * 1e3,
+                   "launches_per_call": sorted(set(per_call)),
+                   "front_size": len(front), "front": front,
+                   "exact_area_mm2": exact_cost.area_mm2,
+                   "best_area_mm2": min(r["area_mm2"] for r in front)},
+        "objective_launch": {
+            "rows": int(args[0].shape[0]), "W": int(W),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "call_p50_ms": float(np.median(call_ms)),
+            "individuals_per_s": cfg.nsga_pop / float(np.median(call_ms))
+            * 1e3,
+            "kernel_share": kernel_ms / float(np.median(call_ms)),
+            "bound_ms": obj_bound[0], "bound_by": obj_bound[1]},
+        "cgp_launch": {
+            "n": n_big, "P": kids.size, "G": kids.n_gates,
+            "W": int(words.shape[1]), "kernel_ms": cgp_kernel_ms,
+            "plain_ms": cgp_plain_ms, "bound_ms": cgp_bound[0],
+            "bound_by": cgp_bound[1], "schedule_depth": sched.depth,
+            "fitness_call_p50_ms": float(np.median(fitness_ms))},
+        "counts": counts, "checks": checks,
+    }
+    say("campaign", **out)
+    phase3 = counts["phase3"]
+    calls = phase3["launches"]["fused_eval_uint"] - \
+        counts["problem"]["launches"]["fused_eval_uint"]
+    if calls != len(scored) or set(per_call) != {1}:
+        fail(f"campaign: {calls} launches for {len(scored)} objective calls "
+             f"(per call {sorted(set(per_call))}), expected one each")
+    if phase3["schedule_launches"] != counts["problem"]["schedule_launches"]:
+        fail("campaign: a schedule was built during the NSGA-II run")
+    for name in ("phase1", "phase2", "problem"):
+        if not counts[name]["launches"]["fused_eval_uint"]:
+            fail(f"campaign: {name} never launched fused_eval_uint")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"campaign: card and CPU differ: {bad}")
+    return out
+
+
 def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
     """A float32 model on the card (kernels) against the CPU (plain
     versions): one prompt and 8 greedy steps, the CPU fed the card's
@@ -1092,7 +1398,7 @@ def main() -> int:
             in0[1, 0] = 0
         got = CK.gate_levels(t(in0), t(in1), n_in).cpu().numpy()
         card = CK.schedule(t(op), t(in0), t(in1), n_in, device=dev)
-        cpu = CK.schedule(op, in0, in1, n_in)
+        cpu = CK.schedule(op, in0, in1, n_in, device="cpu")
         lstats["cases"] += 1
         lstats["mismatches"] += int(
             not np.array_equal(got, CS.gate_levels(in0, in1, n_in))
@@ -1295,6 +1601,9 @@ def main() -> int:
     if pop_launches <= 0:
         fail("the popcount path never launched packed_popcount")
 
+    # -- 4b. the paper's Phases 1-3, counted; card against CPU -------------
+    camp = campaign_phase(dev, smi)
+
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
         quant="ternary_packed"))
@@ -1434,6 +1743,21 @@ def main() -> int:
          "columns_per_block": main_row["columns_per_block"],
          "chain_bound_ms": main_row["chain_bound_ms"],
          "launches_by_variant": by_variant,
+         "campaign": {
+             "launches": {k: v["launches"]["fused_eval_uint"]
+                          for k, v in camp["counts"].items()},
+             "launches_by_variant": camp["counts"]["phase3"]["by_variant"],
+             "schedule_launches":
+                 camp["counts"]["phase3"]["schedule_launches"],
+             "objective": {k: camp["objective_launch"][k] for k in (
+                 "rows", "W", "kernel_ms", "plain_ms", "bound_ms",
+                 "bound_by", "call_p50_ms", "individuals_per_s",
+                 "kernel_share")},
+             "cgp_children": {k: camp["cgp_launch"][k] for k in (
+                 "n", "P", "G", "W", "kernel_ms", "plain_ms", "bound_ms",
+                 "bound_by", "fitness_call_p50_ms")},
+             "note": "launches are cumulative from the campaign's zeroed "
+                     "counts at the end of each phase"},
          "cases": stats["fused_eval_uint"]["cases"],
          "mismatches": stats["fused_eval_uint"]["mismatches"],
          "shape": "arrhythmia, 65536 readings"},

@@ -1,1 +1,1 @@
-"""Netlist structure shared by the compiler IR and the kernels."""
+"""Netlists, the CGP / PCC / NSGA-II phases and the circuit-accurate TNN."""

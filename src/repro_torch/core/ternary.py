@@ -8,12 +8,19 @@ to a byte along K:
 
 Byte row `r` of a packed `(K//4, N)` int8 matrix holds K rows `4r..4r+3`
 in bits 0-1, 2-3, 4-5 and 6-7.  `kernels/csrc/ternary_matmul.cu` reads the
-same layout.  The TNN STE quantizers and `abc_binarize` come with the
-campaign slice.
+same layout.
+
+The ABC input interface of the TNN (Sec. 3.1) is here too: each feature's
+comparator threshold V_q is the median of the normalized training
+distribution (`abc_fit_thresholds`), and `abc_binarize` fires where the
+reading exceeds it.  The STE quantizers of QAT come with the trainer.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 def ternary_quantize_lm(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,3 +58,25 @@ def unpack_ternary(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 def zero_fraction(codes: torch.Tensor) -> torch.Tensor:
     """Share of zero codes: the sparsity that removes wires in print."""
     return (codes == 0).float().mean()
+
+
+def abc_fit_thresholds(x_train: np.ndarray) -> np.ndarray:
+    """Per-feature V_q = median of the normalized training distribution.
+
+    In hardware, V_q is realized by the R1/R2 divider ratio of each ABC.
+    """
+    return np.median(x_train, axis=0)
+
+
+def abc_binarize(x, thresholds, device=None) -> torch.Tensor:
+    """Comparator output: 1.0 where the sensor reading exceeds V_q.
+
+    `(N, F)` readings against `(F,)` thresholds, numpy arrays or tensors,
+    compared in float32 as the reference (JAX, no x64) compares, on
+    `device` (None: the current CUDA device).  Returns `(N, F)` float32 on
+    that device.
+    """
+    dev = resolve_device(device)
+    x, thr = (torch.as_tensor(a).to(device=dev, dtype=torch.float32)
+              for a in (x, thresholds))
+    return (x > thr[None, :]).to(torch.float32)

@@ -1,1 +1,1 @@
-"""Printed-hardware definitions (gate opcodes)."""
+"""Printed-hardware definitions: gate opcodes and the EGFET cost model."""

@@ -34,6 +34,8 @@ runs the plain version in `circuit_sim`, a CUDA tensor launches a kernel,
 anything else raises.  Each wrapper counts its own launches in
 `LAUNCHES`, and each launch adds one to its design's count in
 `VARIANT_LAUNCHES`; the schedule kernels count in `SCHEDULE_LAUNCHES`.
+The counts are taken under a lock, so launches from several threads are
+counted exactly.
 
 Contract on values (checked by the callers that build plans, not here,
 because checking device tensors would stall the stream): opcodes in
@@ -47,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import threading
 import time
 from collections import OrderedDict
 from typing import NamedTuple
@@ -54,6 +57,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.hw.egfet import Gate
 from repro_torch.kernels import circuit_sim as CS
 
@@ -63,6 +67,7 @@ LAUNCHES = {"fused_eval_uint": 0, "simulate_population": 0,
 VARIANTS = ("shared_plane", "global_scratch")
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 SCHEDULE_LAUNCHES = {"gate_levels": 0, "schedule": 0}
+_COUNT_LOCK = threading.Lock()
 MAX_GRID_Y = 65535
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -212,6 +217,16 @@ class Schedule(NamedTuple):
         s0, ge = self._offsets
         return self.program[:, s0 + ge:].view(torch.uint8)
 
+    def take(self, rows) -> "Schedule":
+        """The schedule of plan rows `rows` (with repetition), gathered on
+        the schedule's device with no build: a library's schedule serves
+        any row selection (`NetlistPopulation.take` of the same rows).
+        `depth` and `width` stay the library's, which bound every row's;
+        `build_ms` is the library's one build."""
+        idx = torch.as_tensor(rows, dtype=torch.int64).to(self.rank.device)
+        return self._replace(rank=self.rank.index_select(0, idx),
+                             program=self.program.index_select(0, idx))
+
 
 def _anf_bits() -> np.ndarray:
     """Per opcode, the ANF coefficients (c0, ca, cb, cab) as bits 0-3."""
@@ -248,7 +263,7 @@ def _levels_launch(in0: torch.Tensor, in1: torch.Tensor, n_inputs: int
                                     n_inputs, 4 * G, _stream(dev))
     if err:
         raise RuntimeError(f"gate levels launch failed: CUDA error {err}")
-    SCHEDULE_LAUNCHES["gate_levels"] += 1
+    _count(SCHEDULE_LAUNCHES, "gate_levels")
     return levels, meta
 
 
@@ -298,15 +313,16 @@ def _schedule_on_card(op, in0, in1, n_inputs: int) -> Schedule:
             n_inputs, depth, program.shape[1], s0, ge, smem, _stream(dev))
     if err:
         raise RuntimeError(f"schedule launch failed: CUDA error {err}")
-    SCHEDULE_LAUNCHES["schedule"] += 1
+    _count(SCHEDULE_LAUNCHES, "schedule")
     width = int(meta[1])
     return Schedule(depth, width, (time.perf_counter() - t0) * 1e3, rank,
                     program)
 
 
 def schedule(op, in0, in1, n_inputs: int, levels=None, outputs=None,
-             device="cpu") -> Schedule:
-    """Build the level schedule of `(P, G)` plan rows on `device`.
+             device=None) -> Schedule:
+    """Build the level schedule of `(P, G)` plan rows on `device` (None:
+    the current CUDA device, raising without one; the CPU when named).
 
     Given `levels` `(P, G)` (a `CircuitIR`'s, a fleet padding's) are
     validated against the plan and `outputs` on the host before use
@@ -324,7 +340,7 @@ def schedule(op, in0, in1, n_inputs: int, levels=None, outputs=None,
             raise ValueError("validating given levels needs the outputs")
         levels = torch.from_numpy(CS.check_levels(
             _host(in0), _host(in1), _host(outputs), n_inputs, _host(levels)))
-    device = torch.device(device)
+    device = resolve_device(device)
     op, in0, in1 = (torch.as_tensor(a).to(device=device, dtype=torch.int32)
                     .contiguous() for a in (op, in0, in1))
     P, G = op.shape
@@ -355,10 +371,16 @@ def schedule(op, in0, in1, n_inputs: int, levels=None, outputs=None,
                     rank.to(torch.int32), program)
 
 
+def _count(counts: dict, key: str) -> None:
+    with _COUNT_LOCK:
+        counts[key] += 1
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, VARIANT_LAUNCHES, SCHEDULE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, VARIANT_LAUNCHES, SCHEDULE_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 @functools.cache
@@ -485,8 +507,8 @@ def _run(name: str, decode: bool, op, in0, in1, outputs, words,
     out = _launch(op, in0, in1, outputs, words, n_inputs, decode, sched, p,
                   n_out)
     if P and W:
-        LAUNCHES[name] += 1
-        VARIANT_LAUNCHES[p.variant] += 1
+        _count(LAUNCHES, name)
+        _count(VARIANT_LAUNCHES, p.variant)
     return out
 
 

@@ -12,6 +12,9 @@ the CPU.
 
   * `population_eval_uint` / `population_eval_pop` split the population
     axis across an explicit device list;
+  * `population_pc_errors` scores a population of popcount circuits
+    against true counts (CGP fitness) with one launch a device;
+  * `population_simulate` returns the raw output words (uint64);
   * `program_eval_words` runs one program over a large batch and splits
     the packed *word* axis across the devices;
   * `fleet_eval_words` runs every tenant of a manifest in one launch;
@@ -72,33 +75,91 @@ def _to(arrays, dev) -> list[torch.Tensor]:
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-def population_eval_uint(op, in0, in1, outputs, packed_u64: np.ndarray,
+def _words32(packed):
+    """uint64 packed vectors (numpy, 64 a word) -> uint32 words; an int32
+    tensor of uint32 bit patterns (32 a word, any device) passes as is."""
+    if isinstance(packed, torch.Tensor):
+        return packed
+    return CS.pack_words32(packed)
+
+
+def _population_shards(op, in0, in1, outputs, packed, n_inputs: int,
+                       devs: list[torch.device]):
+    """Yield `(plan shard, words)` per device: the checked plan's rows
+    split round-even across `devs`, with their word planes (shared, or the
+    rows' own) on that device."""
+    plan = check_plan(op, in0, in1, outputs, n_inputs)
+    words32 = _words32(packed)
+    per_individual = words32.ndim == 3
+    for sl, dev in zip(_device_slices(plan[0].shape[0], len(devs)), devs):
+        shard = _to([np.ascontiguousarray(a[sl]) for a in plan], dev)
+        yield shard, CS.words_tensor(
+            words32[sl] if per_individual else words32, dev)
+
+
+def population_eval_uint(op, in0, in1, outputs, packed_u64,
                          n_inputs: int, devices=None) -> np.ndarray:
     """Per-vector decoded outputs `(P, S)` int64 for a population of netlists.
 
     `packed_u64` is `(n_inputs, W)` shared or `(P, n_inputs, W)`
-    per-individual uint64 words (`S = 64 W`).  The population axis splits
-    across `devices`.
+    per-individual uint64 words (`S = 64 W`), or the same planes as int32
+    tensors of uint32 words (`S = 32 W`, e.g. packed on the device by
+    `circuit_sim.pack_bits32`).  The population axis splits across
+    `devices`; a raw plan's schedule is built on the card per call.
     """
-    plan = check_plan(op, in0, in1, outputs, n_inputs)
-    words32 = CS.pack_words32(packed_u64)
-    per_individual = words32.ndim == 3
-    devs = _devices(devices)
-    outs = []
-    for sl, dev in zip(_device_slices(plan[0].shape[0], len(devs)), devs):
-        shard = _to([np.ascontiguousarray(a[sl]) for a in plan], dev)
-        words = CS.words_tensor(words32[sl] if per_individual else words32,
-                                dev)
-        outs.append(CK.fused_eval_uint(*shard, words, n_inputs).cpu())
+    outs = [CK.fused_eval_uint(*shard, words, n_inputs).cpu()
+            for shard, words in _population_shards(
+                op, in0, in1, outputs, packed_u64, n_inputs,
+                _devices(devices))]
     return torch.cat(outs, dim=0).numpy().astype(np.int64)
 
 
-def population_eval_pop(pop, packed_u64: np.ndarray,
-                        devices=None) -> np.ndarray:
+def population_eval_pop(pop, packed_u64, devices=None) -> np.ndarray:
     """`population_eval_uint` over a population object (`op`, `in0`, `in1`,
     `outputs`, `n_inputs` attributes, e.g. `NetlistPopulation`)."""
     return population_eval_uint(pop.op, pop.in0, pop.in1, pop.outputs,
                                 packed_u64, pop.n_inputs, devices=devices)
+
+
+def population_simulate(pop, packed_u64: np.ndarray,
+                        devices=None) -> np.ndarray:
+    """Raw output words `(P, n_out, W)` uint64 of a population object over
+    uint64 packed vectors (`(n_inputs, W)` or `(P, n_inputs, W)`)."""
+    outs = [CK.simulate_population(*shard, words, pop.n_inputs).cpu()
+            for shard, words in _population_shards(
+                pop.op, pop.in0, pop.in1, pop.outputs, packed_u64,
+                pop.n_inputs, _devices(devices))]
+    w32 = torch.cat(outs, dim=0).numpy().view(np.uint32).astype(np.uint64)
+    return np.ascontiguousarray(w32[..., 0::2] | (w32[..., 1::2] << 32))
+
+
+def population_pc_errors(pop, packed_u64, true,
+                         devices=None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-individual `(mae, wcae)` float64 of a population of popcount
+    circuits against the true counts `true` `(S,)`: CGP's fitness term.
+
+    One launch a device decodes every vector; the absolute errors are
+    summed and maximised on the device, and the mean is the exact integer
+    sum over S in float64 on the host, as numpy's mean of the reference's
+    integer errors gives it.  `packed_u64` and `true` are numpy arrays or
+    tensors (words as in `population_eval_uint`), so a caller scoring many
+    generations uploads them once.
+    """
+    stats = []
+    for shard, words in _population_shards(
+            pop.op, pop.in0, pop.in1, pop.outputs, packed_u64, pop.n_inputs,
+            _devices(devices)):
+        approx = CK.fused_eval_uint(*shard, words, pop.n_inputs)
+        want = torch.as_tensor(true).to(device=approx.device,
+                                        dtype=torch.int64)
+        if want.shape != approx.shape[1:]:
+            raise ValueError(f"true counts {tuple(want.shape)} do not match "
+                             f"{approx.shape[1]} decoded vectors")
+        err = (approx.long() - want[None, :]).abs()
+        stats.append(torch.stack([err.sum(dim=1), err.max(dim=1).values],
+                                 dim=1).cpu())
+    total, worst = torch.cat(stats).numpy().astype(np.float64).T
+    return total / want.shape[0], worst
 
 
 def program_eval_words(op, in0, in1, outputs, words32, n_inputs: int,

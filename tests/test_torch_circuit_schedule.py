@@ -141,14 +141,14 @@ def test_computed_levels_equal_ir_levels(name):
     np.testing.assert_array_equal(got, ir.levels)
     plan = [a[None] for a in (ir.op, ir.in0, ir.in1)]
     s = CK.schedule(*plan, ir.n_inputs, levels=ir.levels[None],
-                    outputs=ir.outputs[None])
+                    outputs=ir.outputs[None], device="cpu")
     # the compiler's gates are level-sorted: the order is the identity
     np.testing.assert_array_equal(s.order[0].numpy(), np.arange(ir.n_gates))
     assert s.depth == ir.depth
     assert s.width == np.bincount(ir.levels).max()
     assert s.starts[0, -1] == ir.n_gates
     # computed levels give the same schedule as the carried ones
-    computed = CK.schedule(*plan, ir.n_inputs)
+    computed = CK.schedule(*plan, ir.n_inputs, device="cpu")
     assert (computed.depth, computed.width) == (s.depth, s.width)
     assert torch.equal(computed.rank, s.rank)
     assert torch.equal(computed.program, s.program)
@@ -164,7 +164,7 @@ def test_random_plans_schedule_is_valid(seed):
     np.testing.assert_array_equal(levels, _one_pass_levels(in0, in1, n_in))
     np.testing.assert_array_equal(
         CK.gate_levels(_t(in0), _t(in1), n_in).numpy(), levels)
-    s = CK.schedule(op, in0, in1, n_in)
+    s = CK.schedule(op, in0, in1, n_in, device="cpu")
     order, starts, depth = s.order.numpy(), s.starts.numpy(), s.depth
     assert starts.shape == (P, depth + 1) and (starts[:, -1] == G).all()
     assert depth == (levels.max() if G else 0)
@@ -216,7 +216,7 @@ def test_corrupted_levels_are_rejected(corrupt):
              "negative": "negative"}.get(corrupt, "not a schedule")
     with pytest.raises(ValueError, match=match):
         CK.schedule(ir.op[None], ir.in0[None], ir.in1[None], ir.n_inputs,
-                    levels=lev[None], outputs=outputs[None])
+                    levels=lev[None], outputs=outputs[None], device="cpu")
     if corrupt not in ("shape", "unscheduled_tap"):
         bad = CircuitIR(n_inputs=ir.n_inputs, op=ir.op, in0=ir.in0,
                         in1=ir.in1, outputs=ir.outputs,
@@ -229,7 +229,7 @@ def test_given_levels_need_the_outputs():
     ir = _golden_programs()["redwine"].ir
     with pytest.raises(ValueError, match="outputs"):
         CK.schedule(ir.op[None], ir.in0[None], ir.in1[None], ir.n_inputs,
-                    levels=ir.levels[None])
+                    levels=ir.levels[None], device="cpu")
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -384,7 +384,7 @@ def test_schedule_buffer_layout():
     bits of each row, padded for 16-byte copies, as `row_words` counts."""
     rng = np.random.default_rng(12)
     plan = _population(rng, 5, 37, 3, 3)
-    s = CK.schedule(*plan[:3], 5, outputs=plan[3])
+    s = CK.schedule(*plan[:3], 5, outputs=plan[3], device="cpu")
     assert s.program.shape == (3, CK.row_words(37, s.depth))
     assert CK.row_words(37, s.depth) % 4 == 0
     np.testing.assert_array_equal(s.program[:, : s.depth + 1].numpy(),
@@ -500,7 +500,8 @@ def test_route_without_a_schedule_asks_the_fit_of_no_levels():
 # -- the level walk against the reference ------------------------------------
 def _check_walk(plan, words32, n_in, levels=None):
     words = CS.words_tensor(words32, "cpu")
-    sched = CK.schedule(*plan[:3], n_in, levels=levels, outputs=plan[3])
+    sched = CK.schedule(*plan[:3], n_in, levels=levels, outputs=plan[3],
+                        device="cpu")
     got = level_walk(*[_t(a) for a in plan], words, n_in, sched.order,
                      sched.starts)
     want = CS.simulate_population(*[_t(a) for a in plan], words, n_in)

@@ -587,7 +587,7 @@ def test_schedule_on_the_card_equals_the_cpu_build(cuda, n_in, G, n_out, P):
     on_card = CK.schedule(*[torch.from_numpy(a).to(cuda) for a in plan[:3]],
                           n_in, device=cuda)
     assert CK.SCHEDULE_LAUNCHES["schedule"] == before + int(G > 0)
-    on_cpu = CK.schedule(*plan[:3], n_in)
+    on_cpu = CK.schedule(*plan[:3], n_in, device="cpu")
     assert (on_card.depth, on_card.width) == (on_cpu.depth, on_cpu.width)
     assert torch.equal(on_card.rank.cpu(), on_cpu.rank)
     assert torch.equal(on_card.program.cpu(), on_cpu.program)
@@ -602,10 +602,88 @@ def test_word_plane_off_a_16_byte_boundary(cuda, offset, per_individual):
     n_in, G, n_out, P, W = 12, 300, 5, 3, 2048
     plan = _population(rng, n_in, G, n_out, P)
     # whole quads of columns: the 16-byte loads would apply if aligned
-    sched = CK.schedule(*plan[:3], n_in)
+    sched = CK.schedule(*plan[:3], n_in, device="cpu")
     assert CK.route(P, G, W, n_in, n_out, sched).columns % 4 == 0
     shape = (P, n_in, W) if per_individual else (n_in, W)
     flat = _words(cuda, rng, (int(np.prod(shape)) + offset,))
     words = flat[offset:].view(shape)
     assert words.is_contiguous() and words.data_ptr() % 16
     _both_variants_equal_plain(cuda, plan, words, n_in, "shared_plane")
+
+
+# -- the campaign slice's callers of the gate walk ---------------------------
+def _port_tnn_problem(device, name="cardio"):
+    """`TNNApproxProblem` of a golden TNN on `device`, its PC libraries
+    built from the exact and truncated popcount builders."""
+    from repro_torch.core import circuits as C
+    from repro_torch.core import pcc
+    from repro_torch.core import tnn as T
+    from repro_torch.core.ternary import abc_binarize
+    from repro_torch.data.tabular import make_dataset
+
+    tnn = T.load_tnn(TESTS / "golden_emit" / f"{name}_tnn.npz")
+    ds = make_dataset(name)
+    sizes = sorted({(p, n) for p, n in tnn.hidden_sizes() if p and n})
+    libs = {}
+    for n in sorted({k for s in sizes for k in s} | {tnn.out_nnz}):
+        libs[n] = [C.popcount_netlist(n)] + [
+            C.truncated_popcount_netlist(n, d) for d in range(1, n - 1)]
+        for nl in libs[n]:
+            nl.meta["mae"] = float(nl.meta.get("drop", 0)) / 2
+    lib = pcc.build_pcc_library(sizes, libs, n_samples=4000, device=device)
+    return T.TNNApproxProblem(
+        tnn=tnn, pcc_lib=lib, pc_out_lib=pcc.pc_pareto(libs[tnn.out_nnz]),
+        xbin=abc_binarize(ds.x_train, tnn.thresholds, device=device),
+        y=ds.y_train, device=device)
+
+
+@pytest.mark.parametrize("n", [3, 9, 20])
+def test_population_pc_errors_on_card_equal_cpu(cuda, n):
+    """CGP's fitness call: (mae, wcae) of a random population against true
+    popcounts, on the card equal to the CPU's plain version."""
+    from repro_torch.core import circuits as C
+    from repro_torch.kernels import dispatch as D
+
+    rng = np.random.default_rng(n)
+    pop = C.random_netlist_population(rng, n, 60, C.popcount_width(n), 5)
+    packed, true = C.eval_vectors(n, n_samples=5000)
+    before = CK.LAUNCHES["fused_eval_uint"]
+    got = D.population_pc_errors(pop, packed, true, devices=[cuda])
+    assert CK.LAUNCHES["fused_eval_uint"] == before + 1
+    want = D.population_pc_errors(pop, packed, true, devices=["cpu"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_schedule_take_serves_gathered_rows(cuda):
+    """A library's schedule gathered by `Schedule.take` runs the gathered
+    rows as a schedule built for them does, with no build."""
+    rng = np.random.default_rng(7)
+    plan = [torch.from_numpy(a).to(cuda)
+            for a in _population(rng, 6, 80, 3, 9)]
+    lib = CK.schedule(*plan[:3], 6, device=cuda)
+    rows = torch.tensor([4, 0, 4, 8, 2, 2, 7], device=cuda)
+    sub = [a.index_select(0, rows) for a in plan]
+    words = _words(cuda, rng, (rows.numel(), 6, 33))
+    builds = CK.SCHEDULE_LAUNCHES["schedule"]
+    taken = CK.fused_eval_uint(*sub, words, 6, schedule=lib.take(rows))
+    assert CK.SCHEDULE_LAUNCHES["schedule"] == builds
+    own = CK.fused_eval_uint(*sub, words, 6,
+                             schedule=CK.schedule(*sub[:3], 6, device=cuda))
+    assert torch.equal(taken, own)
+    assert torch.equal(taken, CS.population_eval_uint(*sub, words, 6))
+
+
+@pytest.mark.parametrize("name", ["cardio", "arrhythmia"])
+def test_tnn_objective_on_card_equals_cpu(cuda, name):
+    """`TNNApproxProblem.objective` on the card: one launch a call, no
+    schedule built, objectives equal to the CPU's bit for bit."""
+    card = _port_tnn_problem(cuda, name)
+    cpu = _port_tnn_problem("cpu", name)
+    rng = np.random.default_rng(3)
+    pop = rng.integers(0, card.domains()[None, :], size=(40, card.n_genes))
+    before = (CK.LAUNCHES["fused_eval_uint"], dict(CK.SCHEDULE_LAUNCHES))
+    got = card.objective(pop)
+    assert (CK.LAUNCHES["fused_eval_uint"], CK.SCHEDULE_LAUNCHES) == (
+        before[0] + 1, before[1])
+    np.testing.assert_array_equal(got, cpu.objective(pop))

@@ -3,7 +3,8 @@
 * Importing `repro_torch`, serving a committed bundle, running one
   reduced LM decode step, serving a reduced RWKV-6 model and a packed
   popcount load neither `jax` nor any `repro` module (checked in a fresh
-  interpreter).
+  interpreter); nor do the campaign modules (CGP, PCC, NSGA-II, the TNN
+  problem, the datasets) running a tiny cardio search.
 * No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
   calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
@@ -15,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -92,6 +94,44 @@ def test_port_sources_stand_alone(path):
         assert m is None, f"{path.name} {what}: {m.group(0).strip()!r}"
 
 
+def test_campaign_loads_neither_jax_nor_repro():
+    script = f"""
+import json, sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+from repro_torch.configs.tnn_paper import get_tnn_config
+from repro_torch.core import cgp, circuits as C, pcc, tnn as T
+from repro_torch.core.nsga2 import NSGA2Config
+from repro_torch.core.ternary import abc_binarize
+from repro_torch.data.tabular import make_dataset
+from repro_torch.hw.egfet import power_source
+tnn = T.load_tnn({str(EMIT_DIR / 'cardio_tnn.npz')!r})
+ds = make_dataset("cardio")
+sizes = sorted({{(p, n) for p, n in tnn.hidden_sizes() if p and n}})
+libs = {{n: cgp.evolve_pc_library(n, n_points=1, max_iters=3, n_nodes=40,
+                                  parallel=False, device="cpu")
+        for n in sorted({{k for s in sizes for k in s}} | {{tnn.out_nnz}})}}
+lib = pcc.build_pcc_library(sizes, libs, n_samples=500, device="cpu")
+prob = T.TNNApproxProblem(tnn=tnn, pcc_lib=lib,
+                          pc_out_lib=pcc.pc_pareto(libs[tnn.out_nnz]),
+                          xbin=abc_binarize(ds.x_train, tnn.thresholds,
+                                            device="cpu"),
+                          y=ds.y_train, device="cpu")
+res = prob.optimize(NSGA2Config(pop_size=8, n_generations=2, seed=0))
+cost = T.tnn_hw_cost(tnn, *prob.decode(res.pareto_x[0]))
+ok = bool(len(res.pareto_x)) and cost.area_mm2 > 0
+ok &= get_tnn_config("cardio").nsga_pop == 32 and bool(power_source(1.0))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({{"ok": ok, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
 def test_entry_points_without_device_need_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -110,4 +150,13 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         ServingEngine(cfg, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(get_config("rwkv6-7b").reduced())
+    from repro_torch.core import cgp, circuits, ternary
+    from repro_torch.kernels import cuda_circuit_sim as CK
+    nl = circuits.popcount_netlist(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CK.schedule(nl.op[None], nl.in0[None], nl.in1[None], 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cgp.evolve_popcount(cgp.CGPConfig(3, 2, 10, max_iters=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ternary.abc_binarize(np.zeros((2, 3)), np.zeros(3))
     assert resolve_device("cpu") == torch.device("cpu")
