@@ -87,6 +87,28 @@ package) and prints one JSON object per phase:
      objective call's p50 on the host's clock), the objective launch and
      a CGP children launch (kernel, plain version, bound) and the
      kernel's share of an objective call;
+  4c. `pipeline` — the paper's pipeline from sensor floats to served
+     labels with no file the reference wrote, the gate-walk counters
+     zeroed first (TF32 must be off): for each Table-2 dataset at full
+     topology, `train_tnn` on the card at the golden settings (12 epochs,
+     lr 1e-2, seed 0; timed, and again on the CPU beside it), one QAT step
+     card against CPU from the same parameters and batch (gradients within
+     1e-6 * max|g|) and 20 steps with sync debugging on (no step may wait
+     for the host), `lower_classifier` of the exact netlists,
+     `write_artifacts`, the emitted Verilog read back by `vread` on 2,048
+     random vectors against `predict_bits` on the card and the written
+     bundle, `classify_stream` of the test set tiled to 65,536 readings
+     (`max_batch` 1,024) against `predict_with_circuits` and the integer
+     path, and the score taps against the integer path's scores.  Gates:
+     balanced output zeros, test accuracy within 5 pp of
+     `tests/golden_emit/<ds>_tnn.npz`, every equality.  Printed, not
+     gated: code differences against the golden file and the CPU's
+     training, and whether two card trainings of arrhythmia give identical
+     latents.  Then the five golden classifiers lowered by the port (each
+     bundle's sha256 must equal the committed sidecar), the campaign's
+     NSGA-II front decoded, lowered and served (labels equal its circuits',
+     training error equal to its objective bit for bit), and `python -m
+     repro_torch.compile.export breast_cancer` once on the card;
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
@@ -145,7 +167,8 @@ package) and prints one JSON object per phase:
   8. the `kernels` line (the gate walks' entries with their variant,
      columns a block and chain bound, `fused_eval_uint`'s with a
      `campaign` field: its launches by phase and the two campaign
-     launches timed; the ternary matmul's entry at decode
+     launches timed, and a `pipeline` field with the pipeline's launches
+     (`simulate_population`'s too); the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
      variant; the popcount's with a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
@@ -213,6 +236,21 @@ CAMPAIGN_POINTS = 2
 CAMPAIGN_ITERS = 300
 CAMPAIGN_PCC_SAMPLES = 30_000
 CAMPAIGN_CPU_ITERS = 20
+# The pipeline phase: QAT at `tools/emit_golden_tnn.py`'s settings (12
+# epochs, lr 1e-2, seed 0), PIPE_VERIFY random vectors through the emitted
+# RTL, each test set tiled to PIPE_STREAM readings through an engine of
+# max_batch PIPE_BATCH.  A card-trained TNN's test accuracy may sit
+# PIPE_ACC_TOL from the golden file's: the frameworks' trajectories part
+# where a gradient entry cancels to the noise floor.  One step's gradients,
+# card against CPU, must agree within PIPE_GRAD_TOL * max|g|.
+PIPE_EPOCHS = 12
+PIPE_LR = 1e-2
+PIPE_VERIFY = 2048
+PIPE_STREAM = 65536
+PIPE_BATCH = 1024
+PIPE_ACC_TOL = 0.05
+PIPE_GRAD_TOL = 1e-6
+LOOP_STEPS = 20
 # WKV-6 envelope: first-order rounding of the recurrence in float32 is at
 # most u * (dh + 2T + 2) times the same recurrence run on absolute values
 # (u = eps/2: dh terms in each y sum, two roundings a token carried in the
@@ -738,6 +776,32 @@ def lm_phases(dev, cfg16) -> dict:
     return {"launches": tm_launches, "by_variant": by_variant}
 
 
+def golden_classifier(name: str):
+    """The golden classifier of `name` lowered by the port's functions:
+    `tests/test_golden.py`'s recipe (seeded untrained ternary weights,
+    zero-balanced output columns, the ABC medians, exact netlists)."""
+    import hashlib
+
+    from repro_torch.compile.ir import lower_classifier
+    from repro_torch.core import tnn as T
+    from repro_torch.core.ternary import TERNARY_THRESHOLD, abc_fit_thresholds
+    from repro_torch.data.tabular import make_dataset
+
+    ds = make_dataset(name)
+    F, H, Cc = ds.spec.topology
+    digest = hashlib.sha256(f"golden:{name}".encode()).digest()
+    rng = np.random.default_rng(int.from_bytes(digest[:8], "little"))
+    w1_latent = rng.normal(0.0, 0.7, size=(F, H))
+    w2_latent = rng.normal(0.0, 0.7, size=(H, Cc))
+    w1t = (np.sign(w1_latent)
+           * (np.abs(w1_latent) > TERNARY_THRESHOLD)).astype(np.int8)
+    w2t = T.balance_zero_counts(w2_latent, TERNARY_THRESHOLD)
+    tnn = T.TrainedTNN(w1t=w1t, w2t=w2t,
+                       thresholds=abc_fit_thresholds(ds.x_train),
+                       train_acc=0.0, test_acc=0.0, name=name)
+    return lower_classifier(tnn, *T.exact_netlists(tnn))
+
+
 def same_netlists(a: list, b: list) -> bool:
     """Two netlist lists equal gate for gate, with equal names and meta."""
     return len(a) == len(b) and all(
@@ -747,10 +811,11 @@ def same_netlists(a: list, b: list) -> bool:
         for x, y in zip(a, b))
 
 
-def campaign_phase(dev, smi: str) -> dict:
+def campaign_phase(dev, smi: str) -> tuple:
     """`campaign` — the paper's Phases 1-3 on arrhythmia's golden TNN at
     full width through the port's entry points, counted, then held against
-    the CPU bit for bit; returns the launches, timings and checks."""
+    the CPU bit for bit; returns the launches, timings and checks, the
+    problem on the card and the NSGA-II result."""
     import torch
 
     from repro_torch.configs.tnn_paper import get_tnn_config
@@ -1003,6 +1068,308 @@ def campaign_phase(dev, smi: str) -> dict:
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"campaign: card and CPU differ: {bad}")
+    return out, prob, res
+
+
+def qat_step_check(dev, ds, cfg) -> dict:
+    """One QAT step from the same seeded parameters and batch on the card
+    and on the CPU: the loss's relative difference, the gradients' and the
+    updated latents' largest absolute differences, and max|g|.  Then
+    LOOP_STEPS steps on the card with sync debugging on: a step that waits
+    for the host raises."""
+    import torch
+
+    from repro_torch.core import tnn as T
+    from repro_torch.core.ternary import abc_binarize, abc_fit_thresholds
+    from repro_torch.optim import adamw
+
+    F, H, Cc = ds.spec.topology
+    rng = np.random.default_rng(SEED)
+    arrays = {"w1": rng.normal(0, 0.7, (F, H)),
+              "w2": rng.normal(0, 0.7, (H, Cc))}
+    idx = rng.permutation(ds.y_train.shape[0])[: cfg.batch_size]
+    thr = abc_fit_thresholds(ds.x_train)
+    ocfg = adamw.AdamWConfig(lr=cfg.lr, grad_clip=1.0)
+    runs = []
+    for d in ("cpu", dev):
+        params = T.params_from_arrays(arrays, d)
+        xb = abc_binarize(ds.x_train[idx], thr, device=d)
+        y = torch.from_numpy(ds.y_train[idx].astype(np.int64)).to(d)
+        loss, grads = T.loss_and_grads(params, xb, y, cfg.threshold, H)
+        new, _, _ = T.train_step(params, adamw.init(params), xb, y, cfg,
+                                 ocfg)
+        runs.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                     {k: v.cpu() for k, v in new.items()}))
+    (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = runs
+    # the training loop on the card never waits for the host: steps run
+    # with PyTorch's sync debugging set to raise on any synchronizing call
+    state = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(LOOP_STEPS):
+            params, state, _ = T.train_step(params, state, xb, y, cfg, ocfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"loss_rel_diff": abs(l_dev - l_cpu) / abs(l_cpu),
+            "grad_max_abs": max(float(g.abs().max()) for g in g_cpu.values()),
+            "grad_max_abs_diff": max(float((g_dev[k] - g_cpu[k]).abs().max())
+                                     for k in g_cpu),
+            "latent_max_abs_diff": max(float((p_dev[k] - p_cpu[k]).abs()
+                                             .max()) for k in p_cpu)}
+
+
+def pipeline_phase(dev, smi: str, prob, res) -> dict:
+    """`pipeline` — the paper's pipeline from sensor floats to served labels
+    through the port's entry points, with no file the reference wrote, the
+    gate-walk counters zeroed first: per Table-2 dataset, QAT on the card
+    (and on the CPU, timed beside it), one step card against CPU, lowering,
+    `write_artifacts`, the emitted Verilog read back by `vread` against the
+    program on the card, the test set served; the five golden classifiers
+    lowered by the port, each bundle held to the committed sha256; the
+    campaign's NSGA-II front decoded, lowered and served; and the export CLI
+    run once on the card.  Returns the launches, timings and checks."""
+    import hashlib
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.compile import artifact as A
+    from repro_torch.compile.ir import lower_classifier
+    from repro_torch.compile.program import CircuitProgram
+    from repro_torch.compile.verilog import egfet_report, write_artifacts
+    from repro_torch.compile.vread import (VerilogDesign,
+                                          eval_classifier_verilog)
+    from repro_torch.core import tnn as T
+    from repro_torch.core.ternary import abc_binarize
+    from repro_torch.data.tabular import DATASETS, make_dataset
+    from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.serve.engine import CircuitServingEngine
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("pipeline: float32 matmuls must run in full float32 (TF32 off)")
+    rng = np.random.default_rng(SEED)
+    CK.reset_launches()
+    rows, checks, progs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name in sorted(DATASETS):
+            ds = make_dataset(name)
+            cfg = T.TNNTrainConfig(n_hidden=ds.spec.topology[1],
+                                   epochs=PIPE_EPOCHS, lr=PIPE_LR, seed=SEED)
+            steps = cfg.epochs * -(-ds.y_train.shape[0] // cfg.batch_size)
+            gold = T.load_tnn(EMIT_DIR / f"{name}_tnn.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tnn = T.train_tnn(ds, cfg, device=dev)
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tnn_cpu = T.train_tnn(ds, cfg, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            step = qat_step_check(dev, ds, cfg)
+
+            t0 = time.perf_counter()
+            hidden, outs = T.exact_netlists(tnn)
+            cc = lower_classifier(tnn, hidden, outs)
+            lower_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            paths = write_artifacts(cc, tmp / "emit", base=f"tnn_{name}",
+                                    dataset=name)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            prog = progs[name] = CircuitProgram.from_classifier(
+                cc, device=dev)
+            bundle = A.load_program(paths["program"], device=dev,
+                                    expect_sha256=paths["entry"]["sha256"])
+            xbits = rng.integers(0, 2, size=(PIPE_VERIFY, cc.n_features)
+                                 ).astype(np.uint8)
+            t0 = time.perf_counter()
+            with open(paths["verilog"]) as f:
+                rtl = eval_classifier_verilog(VerilogDesign.parse(f.read()),
+                                              xbits)
+            vread_ms = (time.perf_counter() - t0) * 1e3
+            on_card = prog.predict_bits(xbits)
+
+            reps = -(-PIPE_STREAM // ds.x_test.shape[0])
+            stream = np.tile(ds.x_test, (reps, 1))[:PIPE_STREAM]
+            eng = CircuitServingEngine(prog, max_batch=PIPE_BATCH)
+            eng.warmup()
+            labels = eng.classify_stream(stream)
+            served = eng.stats.summary()
+            xb = abc_binarize(stream, tnn.thresholds, device="cpu").numpy()
+            want = T.predict_with_circuits(tnn, xb, hidden, outs,
+                                           device="cpu")
+            # the score taps (`simulate_population`) against the integer
+            # path's XNOR-match counts
+            xb_test = xb[: ds.x_test.shape[0]]
+            h = (xb_test.astype(np.int64) @ tnn.w1t.astype(np.int64)
+                 >= 0).astype(np.int64)
+            w2 = tnn.w2t.astype(np.int64)
+            nnz = (tnn.w2t != 0).sum(axis=0)
+            report = egfet_report(cc)
+            rows[name] = {
+                "topology": list(tnn.topology), "train_rows":
+                int(ds.y_train.shape[0]), "steps": steps,
+                "train_s": train_s, "steps_per_s": steps / train_s,
+                "cpu_train_s": cpu_s, "cpu_steps_per_s": steps / cpu_s,
+                "test_acc": tnn.test_acc, "cpu_test_acc": tnn_cpu.test_acc,
+                "golden_test_acc": gold.test_acc,
+                "codes_differing_from_golden": {
+                    k: int((getattr(tnn, k) != getattr(gold, k)).sum())
+                    for k in ("w1t", "w2t")},
+                "codes_differing_from_cpu": {
+                    k: int((getattr(tnn, k) != getattr(tnn_cpu, k)).sum())
+                    for k in ("w1t", "w2t")},
+                "step": step, "n_gates": cc.ir.n_gates,
+                "depth": cc.ir.depth,
+                "total_area_mm2": report["total_area_mm2"],
+                "lower_ms": lower_ms, "write_artifacts_ms": write_ms,
+                "vread_ms": vread_ms,
+                "readings_per_s": served["readings_per_s"],
+                "dispatch_p50_ms": served["p50_ms"],
+                "dispatches": served["n_batches"]}
+            checks[name] = {
+                "balanced": bool((nnz == nnz[0]).all()),
+                "accuracy": abs(tnn.test_acc - gold.test_acc)
+                <= PIPE_ACC_TOL,
+                "step_grads": step["grad_max_abs_diff"]
+                <= PIPE_GRAD_TOL * step["grad_max_abs"],
+                "vread_equals_card": bool(np.array_equal(rtl, on_card)),
+                "bundle_equals_program": bool(np.array_equal(
+                    bundle.predict_bits(xbits), on_card)),
+                "served_equals_circuits": bool(np.array_equal(labels, want)),
+                "circuits_equal_integer_path": bool(np.array_equal(
+                    want, T.predict_exact(tnn, xb))),
+                "scores_equal_integer_path": bool(np.array_equal(
+                    prog.scores(xb_test),
+                    h @ (w2 == 1) + (1 - h) @ (w2 == -1)))}
+
+        # two card trainings of arrhythmia: the same latents?
+        ds = make_dataset("arrhythmia")
+        cfg = T.TNNTrainConfig(n_hidden=ds.spec.topology[1],
+                               epochs=PIPE_EPOCHS, lr=PIPE_LR, seed=SEED)
+        repeat, repeat_s = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            repeat.append(T.train_latents(ds, cfg, device=dev)[0])
+            torch.cuda.synchronize()
+            repeat_s.append(time.perf_counter() - t0)
+        a, b = repeat
+        repeat_identical = all(torch.equal(a[k], b[k]) for k in a)
+
+        # the golden classifiers lowered by the port: the reference's bytes
+        golden = {}
+        for name in sorted(DATASETS):
+            cc = golden_classifier(name)
+            path = Path(A.save_program(cc, tmp / "golden"
+                                       / f"{name}{A.PROGRAM_SUFFIX}"))
+            digest = hashlib.sha256(path.read_bytes()).hexdigest()
+            fix = np.load(GOLDEN_DIR / f"{name}.npz")
+            golden[name] = {
+                "sha256_equals_sidecar": digest == (
+                    EMIT_DIR / f"{name}{A.PROGRAM_SUFFIX}.sha256"
+                ).read_text().strip(),
+                "labels_equal_golden": bool(np.array_equal(
+                    CircuitProgram.from_classifier(cc, device=dev).predict(
+                        fix["x"]), fix["labels"]))}
+
+        # the campaign's NSGA-II front: decoded, lowered, served on the card
+        x_train = make_dataset("arrhythmia").x_train
+        front = []
+        for i, (x, f) in enumerate(zip(res.pareto_x, res.pareto_f)):
+            hidden, outs = prob.decode(x)
+            cc = lower_classifier(prob.tnn, hidden, outs,
+                                  name=f"arrhythmia_front_{i}")
+            eng = CircuitServingEngine(
+                CircuitProgram.from_classifier(cc, device=dev),
+                max_batch=PIPE_BATCH)
+            labels = eng.classify_stream(x_train)
+            error = 1.0 - float((labels == prob.y).mean())
+            front.append({
+                "genes": x.tolist(), "n_gates": cc.ir.n_gates,
+                "depth": cc.ir.depth, "error": error,
+                "labels_equal_circuits": bool(np.array_equal(
+                    labels, T.predict_with_circuits(prob.tnn, prob.xbin,
+                                                    hidden, outs,
+                                                    device=dev))),
+                "error_equals_objective": error == float(f[0])})
+        launches = dict(CK.LAUNCHES)
+        by_variant = dict(CK.VARIANT_LAUNCHES)
+
+        # each card-trained program's launch at the engine's batch, timed
+        # after the count: the kernel, its plain version and the bound
+        for name, prog in progs.items():
+            ir = prog.ir
+            x = make_dataset(name).x_test
+            x = np.tile(x, (-(-PIPE_BATCH // x.shape[0]), 1))[:PIPE_BATCH]
+            words = prog.pack_input_bits(prog.binarize(x))
+            plan = [torch.from_numpy(a).to(dev) for a in D.check_plan(
+                *(np.reshape(a, (1, -1)) for a in prog.plan()[:4]),
+                ir.n_inputs)]
+            row = rows[name]
+            row["kernel_ms"] = gpu_ms(lambda: CK.fused_eval_uint(
+                *plan, words, ir.n_inputs, schedule=prog.schedule),
+                TIMED_REPS, True)
+            row["plain_ms"] = gpu_ms(lambda: CS.population_eval_uint(
+                *plan, words, ir.n_inputs), PLAIN_REPS, False)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                [(ir.n_inputs, ir.n_gates, ir.n_outputs, words.shape[1])],
+                True)
+            row["kernel_equals_plain"] = bool(torch.equal(
+                CK.fused_eval_uint(*plan, words, ir.n_inputs,
+                                   schedule=prog.schedule),
+                CS.population_eval_uint(*plan, words, ir.n_inputs)))
+
+        # the export CLI, once, on the card (a process of its own)
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.compile.export",
+             "breast_cancer", str(tmp / "export")], capture_output=True,
+            text=True, timeout=600, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        export_s = time.perf_counter() - t0
+    export_ok = cli.returncode == 0 and any(
+        ln.startswith("[verify] RTL == device program") and "cuda" in ln
+        for ln in cli.stdout.splitlines())
+
+    out = {"nvidia_smi": smi,
+           "settings": {"epochs": PIPE_EPOCHS, "lr": PIPE_LR, "seed": SEED,
+                        "verify_vectors": PIPE_VERIFY,
+                        "stream_readings": PIPE_STREAM,
+                        "max_batch": PIPE_BATCH,
+                        "accuracy_tolerance": PIPE_ACC_TOL,
+                        "grad_tolerance": PIPE_GRAD_TOL},
+           "tf32": False, "datasets": rows,
+           "arrhythmia_repeat_latents_identical": repeat_identical,
+           "arrhythmia_repeat_train_latents_s": repeat_s,
+           "golden": golden, "front": front,
+           "launches": launches, "launches_by_variant": by_variant,
+           "export": {"seconds": export_s, "returncode": cli.returncode,
+                      "ok": export_ok,
+                      "stdout": cli.stdout.strip().splitlines()[-4:]},
+           "checks": checks}
+    say("pipeline", **out)
+    bad = [f"{n}.{k}" for n, c in checks.items() for k, v in c.items()
+           if not v]
+    bad += [f"golden {n}.{k}" for n, c in golden.items() for k, v in c.items()
+            if not v]
+    bad += [f"{n}.kernel_equals_plain" for n, r in rows.items()
+            if not r["kernel_equals_plain"]]
+    bad += [f"front {i}.{k}" for i, r in enumerate(front)
+            for k in ("labels_equal_circuits", "error_equals_objective")
+            if not r[k]]
+    if not export_ok:
+        bad.append("export")
+        print(cli.stderr[-4000:], file=sys.stderr)
+    if bad:
+        fail(f"pipeline: failed checks {bad}")
+    for name in ("fused_eval_uint", "simulate_population"):
+        if not launches[name]:
+            fail(f"the pipeline never launched {name}")
     return out
 
 
@@ -1602,7 +1969,10 @@ def main() -> int:
         fail("the popcount path never launched packed_popcount")
 
     # -- 4b. the paper's Phases 1-3, counted; card against CPU -------------
-    camp = campaign_phase(dev, smi)
+    camp, camp_prob, camp_res = campaign_phase(dev, smi)
+
+    # -- 4c. the pipeline from sensor floats to served labels, counted ------
+    pipe = pipeline_phase(dev, smi, camp_prob, camp_res)
 
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
@@ -1758,6 +2128,8 @@ def main() -> int:
                  "bound_by", "fitness_call_p50_ms")},
              "note": "launches are cumulative from the campaign's zeroed "
                      "counts at the end of each phase"},
+         "pipeline": {"launches": pipe["launches"]["fused_eval_uint"],
+                      "launches_by_variant": pipe["launches_by_variant"]},
          "cases": stats["fused_eval_uint"]["cases"],
          "mismatches": stats["fused_eval_uint"]["mismatches"],
          "shape": "arrhythmia, 65536 readings"},
@@ -1772,6 +2144,7 @@ def main() -> int:
          "variant": main_row["variant"],
          "columns_per_block": main_row["simulate_columns_per_block"],
          "chain_bound_ms": main_row["chain_bound_ms"],
+         "pipeline": {"launches": pipe["launches"]["simulate_population"]},
          "cases": stats["simulate_population"]["cases"],
          "mismatches": stats["simulate_population"]["mismatches"],
          "shape": "arrhythmia score taps, 65536 readings"},

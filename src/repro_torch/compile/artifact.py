@@ -1,12 +1,17 @@
-"""Read servable program bundles and the fleet manifest.
+"""Servable program bundles and the fleet manifest, written and read.
 
-The reader half of `repro.compile.artifact`: the same compressed npz
-bundles (integer IR arrays, float64 ABC thresholds, a JSON header), the
-same `<bundle>.sha256` sidecars and the same `fleet.json` manifest that the
-reference writes.  `load_program` refuses a truncated or bit-flipped bundle,
-or one whose digest disagrees with the manifest row that named it, with
-`ArtifactCorruptError`, and a bundle that is not feed-forward with
-`ValueError`, before anything runs on the device.
+The port of `repro.compile.artifact`: the same compressed npz bundles
+(integer IR arrays, float64 ABC thresholds, a JSON header), the same
+`<bundle>.sha256` sidecars and the same `fleet.json` manifest.
+`save_program` writes the reference's keys in the reference's order and
+dtypes, and the header with `json.dumps(..., sort_keys=True)`, so a
+classifier the port lowers is saved with the bytes (and the sha256) the
+reference writes for it.  `register_tenant` adds or replaces one row of
+the manifest and bumps its generation.  `load_program` refuses a
+truncated or bit-flipped bundle, or one whose digest disagrees with the
+manifest row that named it, with `ArtifactCorruptError`, and a bundle
+that is not feed-forward with `ValueError`, before anything runs on the
+device.
 
 `program_from_arrays` is where a reference design crosses into the port:
 it builds a `CircuitProgram` from the reference `CircuitIR` /
@@ -16,11 +21,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from pathlib import Path
 
 import numpy as np
 
-from repro_torch.compile.ir import CircuitIR
+from repro_torch.compile.ir import CircuitIR, CompiledClassifier
 from repro_torch.compile.program import CircuitProgram
 
 MANIFEST_NAME = "fleet.json"
@@ -39,6 +45,46 @@ def _sha256_file(path: Path) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def save_program(cc: CompiledClassifier, path: str | Path) -> str:
+    """Write the servable slice of a `CompiledClassifier` as one npz.
+
+    A `<path>.sha256` sidecar records the bundle digest (written only
+    after the payload it vouches for), so `load_program` can detect
+    corruption.
+    """
+    ir = cc.ir
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header = {
+        "version": MANIFEST_VERSION,
+        "name": ir.name,
+        "meta": ir.meta,
+        "taps": sorted(ir.taps),
+        "n_classes": cc.n_classes,
+        "score_bits": cc.score_bits,
+    }
+    arrays = {
+        "n_inputs": np.int64(ir.n_inputs),
+        "op": ir.op,
+        "in0": ir.in0,
+        "in1": ir.in1,
+        "outputs": ir.outputs,
+        "levels": ir.levels,
+        "thresholds": np.asarray(cc.thresholds, dtype=np.float64),
+        "header_json": np.frombuffer(
+            json.dumps(header, sort_keys=True).encode(), dtype=np.uint8),
+    }
+    for key in header["taps"]:
+        arrays[f"tap_{key}"] = ir.taps[key]
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    digest = _sha256_file(path)
+    path.with_name(path.name + SHA_SUFFIX).write_text(digest + "\n")
+    return str(path)
 
 
 def verify_program_bundle(path: str | Path,
@@ -147,3 +193,37 @@ def load_manifest_doc(emit_dir: str | Path) -> dict:
 def load_manifest(emit_dir: str | Path) -> list[dict]:
     """Tenant rows of `emit_dir`'s fleet manifest (sorted by name)."""
     return load_manifest_doc(emit_dir)["tenants"]
+
+
+def register_tenant(emit_dir: str | Path, entry: dict) -> Path:
+    """Add/replace one tenant row in `emit_dir`'s manifest (atomic write).
+
+    `entry` must carry at least name/program; paths are stored relative to
+    the emit dir so the directory can be tarred up and served elsewhere.
+    Every call bumps the manifest's generation counter and stamps the row
+    with it — a live fleet watching the file reloads exactly the rows
+    whose generation moved.
+    """
+    if "name" not in entry or "program" not in entry:
+        raise ValueError("manifest entry needs at least name + program")
+    emit_dir = Path(emit_dir)
+    emit_dir.mkdir(parents=True, exist_ok=True)
+    path = manifest_path(emit_dir)
+    tenants, generation = [], 0
+    if path.exists():
+        doc = json.loads(path.read_text())
+        generation = int(doc.get("generation", 0))
+        tenants = [t for t in doc.get("tenants", [])
+                   if t["name"] != entry["name"]]
+    generation += 1
+    entry = {k: (os.path.relpath(v, emit_dir)
+                 if k in ("program", "verilog", "report") else v)
+             for k, v in entry.items()}
+    entry["generation"] = generation
+    tenants.append(entry)
+    doc = {"version": MANIFEST_VERSION, "generation": generation,
+           "tenants": sorted(tenants, key=lambda t: t["name"])}
+    tmp = path.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(doc, indent=2, sort_keys=True) + "\n")
+    os.replace(tmp, path)
+    return path

@@ -60,6 +60,12 @@ class CircuitProgram:
             self._thr = torch.from_numpy(self.thresholds).to(self.device)
 
     @classmethod
+    def from_netlist(cls, nl, device=None) -> "CircuitProgram":
+        """Compile a bare netlist (DCE + levelize) into a program."""
+        from repro_torch.compile.ir import lower_netlist
+        return cls(ir=lower_netlist(nl), device=device)
+
+    @classmethod
     def from_classifier(cls, cc, device=None) -> "CircuitProgram":
         """From any object with `ir`, `thresholds` and `n_classes` (the
         reference `CompiledClassifier` fields)."""

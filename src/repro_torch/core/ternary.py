@@ -1,6 +1,15 @@
-"""Ternary weights for LM layers: absmean quantizer and 2-bit packing.
+"""Ternary and binary quantizers, the ABC input interface and 2-bit packing.
 
-The LM half of `repro.core.ternary`.  Codes are {-1, 0, +1} with a
+The port of `repro.core.ternary`.  The TNN's quantization-aware training
+(`core.tnn.train_tnn`) uses the straight-through estimators: `ternarize`
+maps latent weights to {-1, 0, +1} at a fixed threshold (1/3), compared in
+float32 as the reference (JAX, no x64) compares; `ternary_ste` passes the
+gradient where |w| <= 1, and `binary_step_ste` gives the hidden neurons'
+{-1, +1} step a hard-tanh surrogate gradient.  Forward values are the
+reference's float32 expressions op for op, and the backward masks equal
+JAX's, half the gradient at an exact clip boundary included.
+
+The LM codes are {-1, 0, +1} with a
 per-output-channel scale alpha = mean|W| (BitNet-b1.58 style), stored four
 to a byte along K:
 
@@ -13,7 +22,7 @@ same layout.
 The ABC input interface of the TNN (Sec. 3.1) is here too: each feature's
 comparator threshold V_q is the median of the normalized training
 distribution (`abc_fit_thresholds`), and `abc_binarize` fires where the
-reading exceeds it.  The STE quantizers of QAT come with the trainer.
+reading exceeds it.
 """
 from __future__ import annotations
 
@@ -21,6 +30,41 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+TERNARY_THRESHOLD = 1.0 / 3.0
+
+
+def ternarize(w: torch.Tensor, threshold: float = TERNARY_THRESHOLD
+              ) -> torch.Tensor:
+    """Hard ternarization to {-1, 0, +1} in w's dtype (no gradient).
+
+    The threshold is cast to w's dtype before the compare, as JAX casts a
+    Python float, so a float32 latent between the two roundings of 1/3
+    gets the reference's code.
+    """
+    thr = torch.full((), threshold, dtype=w.dtype, device=w.device)
+    return torch.sign(w) * (w.abs() > thr).to(w.dtype)
+
+
+def ternary_ste(w: torch.Tensor, threshold: float = TERNARY_THRESHOLD
+                ) -> torch.Tensor:
+    """Ternary forward, identity backward inside [-1, 1] (clipped STE)."""
+    q = ternarize(w, threshold)
+    wg = w * (w.abs() <= 1.0).to(w.dtype)
+    return wg + (q - wg).detach()
+
+
+def binary_step_ste(a: torch.Tensor, grad_width) -> torch.Tensor:
+    """sign(a) in {-1, +1} with a >= 0 -> +1; hard-tanh surrogate gradient.
+
+    Matches the hardware comparator semantics (sum >= 0 -> output 1).  The
+    clip is `minimum(1, maximum(-1, a / grad_width))`, as `jnp.clip` is, so
+    a value exactly on a boundary gets half the gradient as in JAX.
+    """
+    h = torch.where(a >= 0, 1.0, -1.0).to(a.dtype)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    surrogate = torch.minimum(one, torch.maximum(-one, a / grad_width))
+    return surrogate + (h - surrogate).detach()
 
 
 def ternary_quantize_lm(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,11 +1,22 @@
-"""Bespoke ternary neural networks (Sec. 3.2): the circuit-accurate half.
+"""Bespoke ternary neural networks (Sec. 3.2): QAT and the circuit path.
 
-The port of `repro.core.tnn` after training: the exact integer path, the
-exact hidden-neuron PCC netlists, circuit-accurate inference through
-chosen netlists, the EGFET system cost and the NSGA-II integration problem
-of Phase 3.  Until the port has its own QAT trainer, a `TrainedTNN` comes
-from the reference's trainer as numpy arrays (`tools/emit_golden_tnn.py`
-writes them, `load_tnn` / `tnn_from_arrays` read them).
+The port of `repro.core.tnn`: quantization-aware training (`train_tnn`, on
+the device it is given), the exact integer path, the exact hidden-neuron
+PCC netlists, circuit-accurate inference through chosen netlists, the EGFET
+system cost and the NSGA-II integration problem of Phase 3.  A
+`TrainedTNN` comes from `train_tnn`, or from arrays (`tnn_from_arrays`,
+`load_tnn` of a `<name>_tnn.npz` file that `tools/emit_golden_tnn.py`
+wrote from the reference's trainer).
+
+Training draws its parameters and every epoch's permutation from one
+`np.random.default_rng(cfg.seed)` in the reference's order and computes
+the reference's float32 expressions with autograd and `optim.adamw`.  The
+two frameworks sum matrix products in different orders, so a gradient
+entry that cancels to the noise floor can take another sign, and AdamW's
+first step `g / (|g| + eps)` turns that into a step of up to ~0.2 lr: a
+trained TNN equals the reference's where the trajectory holds, and is
+held to an accuracy tolerance where it does not.  Everything downstream of
+a given `TrainedTNN` is bit-exact.
 
 Semantics (and the invariant the tests pin down):
 
@@ -35,10 +46,34 @@ import torch
 from repro_torch.core import circuits as C
 from repro_torch.core.nsga2 import NSGA2Config, NSGA2Result, nsga2
 from repro_torch.core.pcc import PCCEntry, PCCLibrary
+from repro_torch.core.ternary import (
+    TERNARY_THRESHOLD,
+    abc_binarize,
+    abc_fit_thresholds,
+    binary_step_ste,
+    ternarize,
+    ternary_ste,
+)
+from repro_torch.data.tabular import TabularDataset
 from repro_torch.device import resolve_device
 from repro_torch.hw.egfet import Gate, HwCost, gate_cost, interface_cost
 from repro_torch.kernels import circuit_sim as CS
 from repro_torch.kernels import cuda_circuit_sim as CK
+from repro_torch.optim import adamw
+
+
+# ---------------------------------------------------------------------------
+# Training (QAT)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TNNTrainConfig:
+    n_hidden: int
+    epochs: int = 15            # paper: 10-20
+    lr: float = 5e-3            # paper: 1e-3..1e-2 (Bayesian-opt'd)
+    batch_size: int = 64
+    seed: int = 0
+    threshold: float = TERNARY_THRESHOLD
+    weight_decay: float = 0.0
 
 
 @dataclass
@@ -64,6 +99,166 @@ class TrainedTNN:
         nnz = (self.w2t != 0).sum(axis=0)
         assert (nnz == nnz[0]).all(), "output zero counts not balanced"
         return int(nnz[0])
+
+
+def _sqrt_f32(n: int, like: torch.Tensor) -> torch.Tensor:
+    """sqrt(n) in float32 on `like`'s device, as `jnp.sqrt(float(n))`.  A
+    tensor divisor on the device keeps CUDA from multiplying by a
+    reciprocal, and `torch.full` fills it there with no host copy (a copy
+    from pageable memory would wait for the stream)."""
+    return torch.sqrt(torch.full((), float(n), dtype=torch.float32,
+                                 device=like.device))
+
+
+def _forward_logits(params, xbin, threshold):
+    w1q = ternary_ste(params["w1"], threshold)
+    a = xbin @ w1q
+    # surrogate-gradient window scaled to the integer popcount-sum magnitude,
+    # otherwise hidden units saturate and w1 receives no learning signal
+    h = binary_step_ste(a, grad_width=_sqrt_f32(xbin.shape[-1], a))
+    w2q = ternary_ste(params["w2"], threshold)
+    return h @ w2q, h
+
+
+def _loss_fn(params, xbin, y, threshold, n_hidden):
+    logits, _ = _forward_logits(params, xbin, threshold)
+    logits = logits / _sqrt_f32(n_hidden, logits)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.take_along_dim(logp, y[:, None].long(), dim=1))
+
+
+def params_from_arrays(arrays: dict, device=None) -> dict[str, torch.Tensor]:
+    """The latent weights `{"w1": (F, H), "w2": (H, C)}` as float32 tensors
+    on `device` (None: the current CUDA device), e.g. the reference's."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(arrays[k])).to(
+        device=dev, dtype=torch.float32) for k in ("w1", "w2")}
+
+
+def loss_and_grads(params: dict[str, torch.Tensor], xbin: torch.Tensor,
+                   y: torch.Tensor, threshold: float, n_hidden: int
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """`_loss_fn` and its gradients with respect to each latent weight."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss = _loss_fn(leaves, xbin, y, threshold, n_hidden)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def train_step(params, ostate, xbin, y, cfg: TNNTrainConfig,
+               ocfg: adamw.AdamWConfig):
+    """One QAT step on a batch: returns (params, ostate, loss), all on the
+    batch's device, with no wait for the host."""
+    loss, grads = loss_and_grads(params, xbin, y, cfg.threshold,
+                                 cfg.n_hidden)
+    params, ostate = adamw.apply_updates(params, grads, ostate, ocfg)
+    return params, ostate, loss
+
+
+def balance_zero_counts(w2_latent: np.ndarray, threshold: float) -> np.ndarray:
+    """Ternarize output weights and equalize per-column zero counts.
+
+    The paper requires the same number N of zero-valued connections in every
+    output neuron so the +N/2 correction term cancels in the argmax.  We
+    project to N* = median zero count, moving the least-important weights:
+      * columns with too few zeros: demote smallest-|latent| nonzeros to 0,
+      * columns with too many zeros: promote largest-|latent| zeros to +-1.
+
+    The codes come from the latents cast to float32 (the reference's
+    `ternarize(jnp.asarray(...))` without x64); the orders and signs read
+    the latents in the dtype they were given, as the reference's do.
+    """
+    w2_latent = np.asarray(w2_latent)
+    codes = ternarize(torch.from_numpy(w2_latent.astype(np.float32)),
+                      threshold).numpy().astype(np.int8)
+    zeros = (codes == 0).sum(axis=0)
+    N = int(np.median(zeros))
+    for o in range(codes.shape[1]):
+        delta = N - int(zeros[o])
+        if delta > 0:        # need more zeros: demote weakest nonzeros
+            nz = np.where(codes[:, o] != 0)[0]
+            order = nz[np.argsort(np.abs(w2_latent[nz, o]), kind="stable")]
+            codes[order[:delta], o] = 0
+        elif delta < 0:      # need fewer zeros: promote strongest zeros
+            z = np.where(codes[:, o] == 0)[0]
+            order = z[np.argsort(-np.abs(w2_latent[z, o]), kind="stable")]
+            for r in order[: -delta]:
+                s = np.sign(w2_latent[r, o])
+                codes[r, o] = np.int8(s if s != 0 else 1)
+    return codes
+
+
+def train_latents(ds: TabularDataset, cfg: TNNTrainConfig, device=None
+                  ) -> tuple[dict[str, torch.Tensor], np.ndarray]:
+    """The QAT loop of `train_tnn`: `(latent params on the device, ABC
+    thresholds)` after `cfg.epochs` epochs, before quantization.
+
+    The binarized training set, the labels and every epoch's permutation
+    live on the device; a step gathers its batch there, and the loop never
+    waits for the host.  Float32 products must run in full float32 (TF32
+    off), as the reference's do.
+    """
+    dev = resolve_device(device)
+    thresholds = abc_fit_thresholds(ds.x_train)
+    xb_tr = abc_binarize(ds.x_train, thresholds, device=dev)
+    F, H, Cc = ds.spec.n_features, cfg.n_hidden, ds.spec.n_classes
+
+    rng = np.random.default_rng(cfg.seed)
+    params = params_from_arrays({
+        "w1": rng.normal(0, 0.7, size=(F, H)),
+        "w2": rng.normal(0, 0.7, size=(H, Cc)),
+    }, dev)
+    ocfg = adamw.AdamWConfig(lr=cfg.lr, weight_decay=cfg.weight_decay,
+                             grad_clip=1.0)
+    ostate = adamw.init(params)
+
+    n = xb_tr.shape[0]
+    perms = torch.from_numpy(np.stack(
+        [rng.permutation(n) for _ in range(cfg.epochs)])).to(dev)
+    y_tr = torch.from_numpy(ds.y_train.astype(np.int64)).to(dev)
+    for epoch in range(cfg.epochs):
+        for s in range(0, n, cfg.batch_size):
+            idx = perms[epoch, s:s + cfg.batch_size]
+            params, ostate, _ = train_step(params, ostate, xb_tr[idx],
+                                           y_tr[idx], cfg, ocfg)
+    return params, thresholds
+
+
+def train_tnn(ds: TabularDataset, cfg: TNNTrainConfig,
+              device=None) -> TrainedTNN:
+    """Quantization-aware training of a (F, H, C) bespoke TNN on `device`
+    (None: the current CUDA device); see `train_latents`."""
+    params, thresholds = train_latents(ds, cfg, device)
+    w1t = ternarize(params["w1"], cfg.threshold).cpu().numpy().astype(np.int8)
+    w2t = balance_zero_counts(params["w2"].cpu().numpy(), cfg.threshold)
+    tnn = TrainedTNN(w1t=w1t, w2t=w2t, thresholds=thresholds,
+                     train_acc=0.0, test_acc=0.0, name=ds.name)
+    xb_tr, xb_te = (abc_binarize(x, thresholds, device="cpu").numpy()
+                    for x in (ds.x_train, ds.x_test))
+    tnn.train_acc = float((predict_exact(tnn, xb_tr) == ds.y_train).mean())
+    tnn.test_acc = float((predict_exact(tnn, xb_te) == ds.y_test).mean())
+    return tnn
+
+
+def search_tnn(ds: TabularDataset, hidden_options: list[int],
+               lr_options: list[float] | None = None,
+               seeds: tuple[int, ...] = (0, 1), epochs: int = 15,
+               device=None) -> TrainedTNN:
+    """Scaled-down version of the paper's exhaustive/Bayesian hyperparameter
+    search (Sec. 5): best test accuracy, ties broken by fewer neurons."""
+    lrs = lr_options or [2e-3, 5e-3, 1e-2]
+    best: TrainedTNN | None = None
+    for h in hidden_options:
+        for lr in lrs:
+            for seed in seeds:
+                t = train_tnn(ds, TNNTrainConfig(n_hidden=h, lr=lr, seed=seed,
+                                                 epochs=epochs), device=device)
+                if (best is None or t.test_acc > best.test_acc + 1e-9
+                        or (abs(t.test_acc - best.test_acc) <= 1e-9
+                            and t.w1t.shape[1] < best.w1t.shape[1])):
+                    best = t
+    assert best is not None
+    return best
 
 
 def tnn_from_arrays(w1t, w2t, thresholds, train_acc: float = 0.0,

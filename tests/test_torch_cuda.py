@@ -687,3 +687,69 @@ def test_tnn_objective_on_card_equals_cpu(cuda, name):
     assert (CK.LAUNCHES["fused_eval_uint"], CK.SCHEDULE_LAUNCHES) == (
         before[0] + 1, before[1])
     np.testing.assert_array_equal(got, cpu.objective(pop))
+
+
+def test_qat_step_on_card_equals_cpu(cuda):
+    """One QAT step from the same parameters and batch on the card and on
+    the CPU: loss within 1e-6 relative, gradients within 1e-6 * max|g|.
+    AdamW's first update is g / (|g| + eps) * lr, so an entry whose
+    gradient is noise may move by up to 2 lr apart; every entry whose
+    gradient stands 1e-4 * max|g| clear of the noise agrees within 1e-6."""
+    from repro_torch.core import tnn as T
+    from repro_torch.core.ternary import abc_binarize, abc_fit_thresholds
+    from repro_torch.data.tabular import make_dataset
+    from repro_torch.optim import adamw
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    ds = make_dataset("arrhythmia")
+    F, H, Cc = ds.spec.topology
+    rng = np.random.default_rng(0)
+    arrays = {"w1": rng.normal(0, 0.7, (F, H)),
+              "w2": rng.normal(0, 0.7, (H, Cc))}
+    idx = rng.permutation(ds.y_train.shape[0])[:64]
+    thr = abc_fit_thresholds(ds.x_train)
+    cfg = T.TNNTrainConfig(n_hidden=H, lr=1e-2)
+    ocfg = adamw.AdamWConfig(lr=cfg.lr, grad_clip=1.0)
+    out = []
+    for dev in ("cpu", cuda):
+        params = T.params_from_arrays(arrays, dev)
+        xb = abc_binarize(ds.x_train[idx], thr, device=dev)
+        y = torch.from_numpy(ds.y_train[idx].astype(np.int64)).to(dev)
+        loss, grads = T.loss_and_grads(params, xb, y, cfg.threshold, H)
+        new, state, _ = T.train_step(params, adamw.init(params), xb, y, cfg,
+                                     ocfg)
+        assert int(state.step) == 1
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                    {k: p.cpu() for k, p in new.items()}))
+    (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = out
+    assert abs(l_dev - l_cpu) <= 1e-6 * abs(l_cpu)
+    g_max = max(float(g.abs().max()) for g in g_cpu.values())
+    for k in g_cpu:
+        torch.testing.assert_close(g_dev[k], g_cpu[k], rtol=0,
+                                   atol=1e-6 * g_max)
+        clear = g_cpu[k].abs() > 1e-4 * g_max
+        torch.testing.assert_close(p_dev[k][clear], p_cpu[k][clear], rtol=0,
+                                   atol=1e-6)
+        assert float((p_dev[k] - p_cpu[k]).abs().max()) <= 2 * cfg.lr
+
+
+def test_lowered_classifier_serves_on_card_as_on_cpu(cuda):
+    from repro_torch.compile.ir import lower_classifier
+    from repro_torch.compile.program import CircuitProgram
+    from repro_torch.core import tnn as T
+    from repro_torch.data.tabular import make_dataset
+    from repro_torch.serve.engine import CircuitServingEngine
+
+    tnn = T.load_tnn(TESTS / "golden_emit" / "arrhythmia_tnn.npz")
+    cc = lower_classifier(tnn, *T.exact_netlists(tnn))
+    x = np.tile(make_dataset("arrhythmia").x_test, (12, 1))
+    CK.reset_launches()
+    card = CircuitServingEngine(CircuitProgram.from_classifier(cc, cuda),
+                                max_batch=1024).classify_stream(x)
+    assert CK.LAUNCHES["fused_eval_uint"] == -(-x.shape[0] // 1024)
+    cpu = CircuitServingEngine(CircuitProgram.from_classifier(cc, "cpu"),
+                               max_batch=1024).classify_stream(x)
+    np.testing.assert_array_equal(card, cpu)
+    xb = CircuitProgram.from_classifier(cc, "cpu").binarize(x[:512]).numpy()
+    np.testing.assert_array_equal(card[:512], T.predict_exact(tnn, xb))

@@ -4,7 +4,10 @@
   reduced LM decode step, serving a reduced RWKV-6 model and a packed
   popcount load neither `jax` nor any `repro` module (checked in a fresh
   interpreter); nor do the campaign modules (CGP, PCC, NSGA-II, the TNN
-  problem, the datasets) running a tiny cardio search.
+  problem, the datasets) running a tiny cardio search; nor does the
+  pipeline (QAT, the optimizer, lowering, the Verilog writer and reader,
+  the bundle writer and the export CLI) training and emitting a cardio
+  classifier.
 * No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
   calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
@@ -132,6 +135,42 @@ print(json.dumps({{"ok": ok, "bad": bad}}))
     assert res == {"ok": True, "bad": []}
 
 
+def test_pipeline_loads_neither_jax_nor_repro(tmp_path):
+    script = f"""
+import json, sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+from repro_torch.compile import (CircuitProgram, eval_classifier_verilog,
+                                 load_manifest, load_program,
+                                 lower_classifier, write_artifacts)
+from repro_torch.compile import export
+from repro_torch.core import tnn as T
+from repro_torch.data.tabular import make_dataset
+from repro_torch.optim import adamw
+ds = make_dataset("cardio")
+tnn = T.train_tnn(ds, T.TNNTrainConfig(n_hidden=3, epochs=1, lr=1e-2),
+                  device="cpu")
+cc = lower_classifier(tnn, *T.exact_netlists(tnn))
+paths = write_artifacts(cc, {str(tmp_path)!r}, base="cardio")
+row = load_manifest({str(tmp_path)!r})[0]
+prog = load_program({str(tmp_path)!r} + "/" + row["program"], device="cpu",
+                    expect_sha256=row["sha256"])
+xb = prog.binarize(ds.x_test).numpy()
+ok = bool((eval_classifier_verilog(open(paths["verilog"]).read(), xb)
+           == prog.predict(ds.x_test)).all())
+ok &= bool((prog.predict(ds.x_test) == T.predict_exact(tnn, xb)).all())
+ok &= callable(export.main) and adamw.AdamWConfig().grad_clip == 1.0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({{"ok": ok, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
 def test_entry_points_without_device_need_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -159,4 +198,17 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         cgp.evolve_popcount(cgp.CGPConfig(3, 2, 10, max_iters=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ternary.abc_binarize(np.zeros((2, 3)), np.zeros(3))
+    from repro_torch.compile import export
+    from repro_torch.compile.program import CircuitProgram
+    from repro_torch.core import tnn
+    from repro_torch.data.tabular import make_dataset
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnn.train_tnn(make_dataset("cardio"), tnn.TNNTrainConfig(3, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnn.params_from_arrays({"w1": np.zeros((2, 1)),
+                                "w2": np.zeros((1, 2))})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.main("cardio", "unused", epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CircuitProgram.from_netlist(nl)
     assert resolve_device("cpu") == torch.device("cpu")
