@@ -109,6 +109,32 @@ package) and prints one JSON object per phase:
      NSGA-II front decoded, lowered and served (labels equal its circuits',
      training error equal to its objective bit for bit), and `python -m
      repro_torch.compile.export breast_cancer` once on the card;
+  4d. `baselines` — the paper's Table-2/3 MLP baselines
+     (`core.baselines.train_mlp_baseline`) for every Table-2 dataset x
+     {exact, pow2} at `benchmarks/table2_accuracy.py`'s settings, trained
+     on the card and on the CPU, timed: test accuracy within 3 pp of the
+     reference's (`tests/golden_emit/mlp_baselines.npz`) and of the CPU's,
+     `cost("adc4")` equal to the golden one wherever the integer weights
+     are; weights differing from the golden file are printed;
+  4e. `fleet` — the five golden tenants served by `ClassifierFleet` on the
+     card at the reference's defaults (`max_batch` 256, `deadline_ms` 50),
+     each tenant's golden readings then its seeded test split tiled to
+     65,536 readings, submitted as 256-row frames by 2 producers, in five
+     modes in turn (`fleet_mode` lines): in-process with 1 and 2 replicas,
+     `megakernel=True`, over the socket (`FleetServer` on 127.0.0.1:0, the
+     port's `FleetClient`), and `workers=2` spawned processes on the card.
+     Labels must equal offline `CircuitProgram.predict` on the card and the
+     golden labels; the counters, zeroed after warm-up, must read
+     `fused_eval_uint` = dispatches in-process and over the socket,
+     `fleet_eval_words` only (one a megakernel dispatch) in megakernel
+     mode, nothing in the parent and `fused_eval_uint` in each worker in
+     worker mode, all `shared_plane`.  Readings/s, request p50/p99,
+     `n_slo_miss` (not gated), `n_shed` and dispatch p50/p99 are printed.
+     `fleet_kernels` times both kernels at the fleet's shape (256
+     readings) against their plain versions and bounds, with a dispatch's
+     host parts; `fleet_cli` runs `python -m repro_torch.serve replay` on
+     the card, then `serve` on port 0 with `replay --connect` against it
+     (each must exit 0; the server stops on SIGINT after draining);
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
@@ -167,8 +193,10 @@ package) and prints one JSON object per phase:
   8. the `kernels` line (the gate walks' entries with their variant,
      columns a block and chain bound, `fused_eval_uint`'s with a
      `campaign` field: its launches by phase and the two campaign
-     launches timed, and a `pipeline` field with the pipeline's launches
-     (`simulate_population`'s too); the ternary matmul's entry at decode
+     launches timed, a `pipeline` field with the pipeline's launches
+     (`simulate_population`'s too), and a `fleet` field with the fleet's
+     launches by mode and the kernels at the fleet's shape (on
+     `fleet_eval_words`' entry too); the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
      variant; the popcount's with a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
@@ -251,6 +279,22 @@ PIPE_BATCH = 1024
 PIPE_ACC_TOL = 0.05
 PIPE_GRAD_TOL = 1e-6
 LOOP_STEPS = 20
+# The baselines phase: `benchmarks/table2_accuracy.py`'s settings (15
+# epochs).  A card-trained baseline's test accuracy may sit MLP_ACC_TOL
+# from the reference's (`tests/golden_emit/mlp_baselines.npz`) and from the
+# CPU's: the trajectories part where a gradient cancels to the noise floor
+# (ROADMAP Queue 3 has the CPU's table).
+MLP_EPOCHS = 15
+MLP_ACC_TOL = 0.03
+# The fleet phase: each golden tenant's stream of FLEET_STREAM readings,
+# FLEET_PRODUCERS threads submitting FLEET_FRAME-row frames, FLEET_WORKERS
+# spawned processes in worker mode; the replay CLI once at
+# FLEET_CLI_READINGS a tenant.
+FLEET_STREAM = 65536
+FLEET_PRODUCERS = 2
+FLEET_FRAME = 256
+FLEET_WORKERS = 2
+FLEET_CLI_READINGS = 2048
 # WKV-6 envelope: first-order rounding of the recurrence in float32 is at
 # most u * (dh + 2T + 2) times the same recurrence run on absolute values
 # (u = eps/2: dh terms in each y sum, two roundings a token carried in the
@@ -1373,6 +1417,425 @@ def pipeline_phase(dev, smi: str, prob, res) -> dict:
     return out
 
 
+def baselines_phase(dev, smi: str) -> dict:
+    """`baselines` — the paper's Table-2/3 MLP baselines through the port's
+    `train_mlp_baseline`: every Table-2 dataset x {exact, pow2} at
+    `benchmarks/table2_accuracy.py`'s settings (hidden = the dataset's
+    `mlp_topology[1]`, `MLP_EPOCHS` epochs, lr 5e-3, seed 0), trained on the
+    card and on the CPU, timed.  Gates: test accuracy within `MLP_ACC_TOL`
+    of `tests/golden_emit/mlp_baselines.npz` (the reference's, from
+    `tools/emit_golden_mlp.py`), the card within the same of the CPU, and
+    `cost("adc4")` equal to the golden area and power whenever the integer
+    weights equal the golden ones.  Integer weights differing from the
+    golden file and from the CPU's are printed."""
+    import torch
+
+    from repro_torch.core import baselines as B
+    from repro_torch.data.tabular import DATASETS, make_dataset
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("baselines: float32 matmuls must run in full float32 (TF32 "
+             "off)")
+    with np.load(EMIT_DIR / "mlp_baselines.npz") as fix:
+        golden = {k: fix[k] for k in fix.files}
+    rows, checks = {}, {}
+    for name in sorted(DATASETS):
+        ds = make_dataset(name)
+        hidden = DATASETS[name].mlp_topology[1]
+        steps = MLP_EPOCHS * -(-ds.y_train.shape[0] // B.BATCH)
+        for mode, pow2 in (("exact", False), ("pow2", True)):
+            key = f"{name}_{mode}"
+            runs = {}
+            for where in (dev, "cpu"):
+                if where == dev:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[str(where)] = (B.train_mlp_baseline(
+                    ds, hidden, pow2=pow2, epochs=MLP_EPOCHS, device=where),
+                    time.perf_counter() - t0)
+            (card, card_s), (cpu, cpu_s) = runs[str(dev)], runs["cpu"]
+            gw = [golden[f"{key}_w1"], golden[f"{key}_w2"]]
+            g_acc = float(golden[f"{key}_test_acc"])
+            g_cost = (float(golden[f"{key}_area_mm2"]),
+                      float(golden[f"{key}_power_mw"]))
+            same_golden = all(np.array_equal(a, b)
+                              for a, b in zip(card.weights_int, gw))
+            cost = card.cost("adc4")
+            rows[key] = {
+                "hidden": hidden, "steps": steps,
+                "train_s": card_s, "steps_per_s": steps / card_s,
+                "cpu_train_s": cpu_s, "cpu_steps_per_s": steps / cpu_s,
+                "test_acc": card.test_acc, "cpu_test_acc": cpu.test_acc,
+                "golden_test_acc": g_acc,
+                "weights_differing_from_golden": [
+                    int((a != b).sum()) for a, b in zip(card.weights_int,
+                                                        gw)],
+                "weights_differing_from_cpu": [
+                    int((a != b).sum()) for a, b in zip(card.weights_int,
+                                                        cpu.weights_int)],
+                "area_mm2": cost.area_mm2, "power_mw": cost.power_mw,
+                "golden_area_mm2": g_cost[0], "golden_power_mw": g_cost[1]}
+            checks[key] = {
+                "accuracy_vs_golden": abs(card.test_acc - g_acc)
+                <= MLP_ACC_TOL,
+                "card_vs_cpu": abs(card.test_acc - cpu.test_acc)
+                <= MLP_ACC_TOL,
+                "cost_when_weights_equal": (not same_golden) or (
+                    (cost.area_mm2, cost.power_mw) == g_cost)}
+    out = {"nvidia_smi": smi,
+           "settings": {"epochs": MLP_EPOCHS, "lr": 5e-3, "seed": 0,
+                        "batch": B.BATCH, "accuracy_tolerance": MLP_ACC_TOL},
+           "tf32": False, "datasets": rows, "checks": checks}
+    say("baselines", **out)
+    bad = [f"{k}.{c}" for k, cs in checks.items() for c, v in cs.items()
+           if not v]
+    if bad:
+        fail(f"baselines: failed checks {bad}")
+    return out
+
+
+def fleet_streams(dev) -> tuple[dict, dict, dict]:
+    """Each golden tenant's stream — its `tests/golden/<name>.npz` readings,
+    then its dataset's seeded test split tiled, `FLEET_STREAM` readings in
+    all — with the golden labels and offline `CircuitProgram.predict` on
+    the card (which must reproduce the golden labels)."""
+    from repro_torch.compile.artifact import load_manifest, load_program
+    from repro_torch.data.tabular import make_dataset
+
+    streams, golden, offline = {}, {}, {}
+    for row in load_manifest(EMIT_DIR):
+        name = row["name"]
+        with np.load(GOLDEN_DIR / f"{name}.npz") as fix:
+            gx, golden[name] = fix["x"], fix["labels"]
+        test = make_dataset(row["dataset"]).x_test
+        tiled = np.tile(test, (-(-FLEET_STREAM // test.shape[0]), 1))
+        streams[name] = np.ascontiguousarray(
+            np.concatenate([gx, tiled])[:FLEET_STREAM], dtype=np.float64)
+        prog = load_program(EMIT_DIR / row["program"], device=dev,
+                            expect_sha256=row["sha256"])
+        offline[name] = prog.predict(streams[name])
+        if not np.array_equal(offline[name][: gx.shape[0]], golden[name]):
+            fail(f"fleet: offline predict of {name} differs from "
+                 f"tests/golden")
+    return streams, golden, offline
+
+
+def drive_fleet(submit_many, streams: dict) -> tuple[dict, float]:
+    """`FLEET_PRODUCERS` threads submit every stream in `FLEET_FRAME`-row
+    frames, interleaved across tenants; returns each tenant's labels (in
+    stream order) and the wall seconds from the first submit to the last
+    label."""
+    import threading
+
+    names = sorted(streams)
+    tasks = [(n, s) for s in range(0, FLEET_STREAM, FLEET_FRAME)
+             for n in names]
+    handles = {n: [None] * (FLEET_STREAM // FLEET_FRAME) for n in names}
+    errors = []
+
+    def produce(w: int) -> None:
+        try:
+            for n, s in tasks[w::FLEET_PRODUCERS]:
+                handles[n][s // FLEET_FRAME] = submit_many(
+                    n, streams[n][s:s + FLEET_FRAME])
+        except Exception as exc:        # surfaced below, never swallowed
+            errors.append(f"producer {w}: {type(exc).__name__}: {exc}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=produce, args=(w,), daemon=True)
+               for w in range(FLEET_PRODUCERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"fleet producers: {errors or 'still submitting after 600 s'}")
+    labels = {n: np.array([h.result(600.0) for hs in handles[n] for h in hs],
+                          dtype=np.int32) for n in names}
+    return labels, time.perf_counter() - t0
+
+
+def fleet_phase(dev, smi: str) -> dict:
+    """`fleet` — the five golden tenants of `tests/golden_emit/fleet.json`
+    served on the card by `ClassifierFleet` at the reference's defaults
+    (`max_batch` 256, `deadline_ms` 50), each tenant's stream
+    (`fleet_streams`) submitted by `drive_fleet`, in five modes in turn:
+    in-process with one and with two replicas a tenant, `megakernel=True`,
+    over the socket (a `FleetServer` on 127.0.0.1:0, the port's
+    `FleetClient` sending SUBMIT_BATCH frames), and `workers=2` spawned
+    processes on the card.  In every mode the labels must equal offline
+    `CircuitProgram.predict` on the card and, on the golden readings,
+    `tests/golden/<name>.npz`; the launch counters, zeroed after the
+    fleet's warm-up, must show `fused_eval_uint` launches (in the workers'
+    own processes in worker mode, none in the parent) and no
+    `fleet_eval_words` in-process and over the socket, `fleet_eval_words`
+    launches and no other in megakernel mode, all `shared_plane`.
+    Printed per mode: readings/s, request p50/p99 ms, `n_slo_miss`,
+    `n_shed`, dispatch p50/p99 ms, launches; SLO misses are not gated.
+    Then the kernels at the fleet's batch shape (`max_batch` readings, W =
+    8 words) against their plain versions and bounds, a dispatch's parts
+    (binarize and pack, launch and copy back), and `python -m
+    repro_torch.serve replay` on the card, then `serve` on 127.0.0.1:0 with
+    `replay --connect` against it, each in a process of its own."""
+    import os
+
+    import torch
+
+    from repro_torch.compile.artifact import load_manifest, load_program
+    from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.serve import (DEFAULT_DEADLINE_MS, DEFAULT_MAX_BATCH,
+                                   ClassifierFleet)
+    from repro_torch.serve.client import FleetClient
+    from repro_torch.serve.engine import CircuitServingEngine
+    from repro_torch.serve.server import FleetServer
+
+    streams, golden, offline = fleet_streams(dev)
+    total = sum(x.shape[0] for x in streams.values())
+    window = total                      # every request in the percentiles
+    modes = {
+        "inprocess_replicas_1": dict(replicas=1),
+        "inprocess_replicas_2": dict(replicas=2),
+        "megakernel": dict(megakernel=True),
+        "socket": dict(replicas=2),
+        "workers_2": dict(workers=FLEET_WORKERS),
+    }
+    rows, checks = {}, {}
+    for mode, kw in modes.items():
+        t0 = time.perf_counter()
+        fleet = ClassifierFleet.from_emit_dir(EMIT_DIR, device=dev,
+                                              stats_window=window, **kw)
+        build_s = time.perf_counter() - t0
+        hosts = list(fleet._worker_hosts.values())
+        before = [c for h in hosts for c in h.launches()]
+        server = client = None
+        try:
+            if mode == "socket":
+                server = FleetServer(fleet)
+                host, port = server.start_background()
+                client = FleetClient(host, port)
+
+                def submit_many(n, x):
+                    return client.submit_many(n, x)
+            else:
+                def submit_many(n, x):
+                    reqs, shed, _ = fleet.submit_many(n, x)
+                    if shed.size:
+                        fail(f"fleet {mode}: {shed.size} readings shed")
+                    return reqs
+            torch.cuda.synchronize()
+            CK.reset_launches()
+            labels, wall = drive_fleet(submit_many, streams)
+            torch.cuda.synchronize()
+            launches = dict(CK.LAUNCHES)
+            by_variant = dict(CK.VARIANT_LAUNCHES)
+            s = fleet.stats_summary()
+            workers = None
+            if hosts:
+                after = [c for h in hosts for c in h.launches()]
+                workers = [{"launches": {k: a["launches"][k]
+                                         - b["launches"][k]
+                                         for k in a["launches"]},
+                            "by_variant": {k: a["by_variant"][k]
+                                           - b["by_variant"][k]
+                                           for k in a["by_variant"]}}
+                           for a, b in zip(after, before)]
+                s["workers"] = {d: h.summary()
+                                for d, h in fleet._worker_hosts.items()}
+        finally:
+            if client is not None:
+                client.close()
+            if server is not None:
+                server.stop()
+            fleet.shutdown(drain=True)
+        f = s["fleet"]
+        row = {"build_s": build_s, "readings": total, "wall_s": wall,
+               "readings_per_s": total / wall,
+               "req_p50_ms": f["req_p50_ms"], "req_p99_ms": f["req_p99_ms"],
+               "n_slo_miss": f["n_slo_miss"], "n_shed": f["n_shed"],
+               "dispatch_p50_ms": f["p50_ms"], "dispatch_p99_ms": f["p99_ms"],
+               "n_batches": f["n_batches"],
+               "wall_per_batch_ms": wall * 1e3 / max(f["n_batches"], 1),
+               "errors": fleet.errors[:4],
+               "launches": launches, "launches_by_variant": by_variant}
+        if "megakernel" in s:
+            row["megakernel_launches"] = s["megakernel"]["launches"]
+            row["megakernel_peak_tenants"] = \
+                s["megakernel"]["peak_tenants_per_launch"]
+        if workers is not None:
+            row["worker_launches"] = workers
+            row["worker_pids"] = [p["pid"] for w in s["workers"].values()
+                                  for p in w["procs"]]
+            row["worker_device"] = sorted(s["workers"])
+        rows[mode] = row
+        eq = {n: bool(np.array_equal(labels[n], offline[n])) for n in labels}
+        gold = {n: bool(np.array_equal(labels[n][: golden[n].shape[0]],
+                                       golden[n])) for n in labels}
+        c = {"labels_equal_offline": all(eq.values()),
+             "golden_labels": all(gold.values()),
+             "no_errors": not fleet.errors}
+        if mode == "megakernel":
+            c["launched"] = launches["fleet_eval_words"] > 0
+            c["only_fleet_eval_words"] = launches["fused_eval_uint"] == 0 \
+                and launches["simulate_population"] == 0
+            c["megakernel_count"] = \
+                row["megakernel_launches"] == launches["fleet_eval_words"] > 0
+            c["shared_plane"] = by_variant["global_scratch"] == 0
+        elif mode == "workers_2":
+            c["parent_launched_nothing"] = sum(launches.values()) == 0
+            c["workers_launched"] = all(
+                w["launches"]["fused_eval_uint"] > 0 for w in workers)
+            c["shared_plane"] = all(w["by_variant"]["global_scratch"] == 0
+                                    for w in workers)
+            c["spawned_on_card"] = row["worker_device"] == [str(dev)] and \
+                len(set(row["worker_pids"])) == FLEET_WORKERS
+        else:
+            c["launched"] = launches["fused_eval_uint"] == f["n_batches"] > 0
+            c["no_fleet_eval_words"] = launches["fleet_eval_words"] == 0
+            c["shared_plane"] = by_variant["global_scratch"] == 0
+        checks[mode] = c
+        say("fleet_mode", mode=mode, nvidia_smi=smi, **row, checks=c)
+        torch.cuda.empty_cache()
+
+    # the kernels at the fleet's batch shape, against their plain versions
+    progs = {row["name"]: load_program(EMIT_DIR / row["program"], device=dev)
+             for row in load_manifest(EMIT_DIR)}
+    shape, words_list, plans = {}, [], []
+    mismatches = 0
+    for name, prog in progs.items():
+        ir = prog.ir
+        plan = [torch.from_numpy(a).to(dev) for a in D.check_plan(
+            *(np.reshape(a, (1, -1)) for a in prog.plan()[:4]), ir.n_inputs)]
+        words = prog.pack_input_bits(
+            prog.binarize(streams[name][:DEFAULT_MAX_BATCH]))
+        words_list.append(words)
+        plans.append(prog.plan())
+        W = int(words.shape[1])
+        got = CK.fused_eval_uint(*plan, words, ir.n_inputs,
+                                 schedule=prog.schedule)
+        want = CS.population_eval_uint(*plan, words, ir.n_inputs)
+        mismatches += int(not torch.equal(got, want))
+        r = {"W": W, "G": ir.n_gates, "depth": ir.depth,
+             "variant": CK.route(1, ir.n_gates, W, ir.n_inputs,
+                                 ir.n_outputs, prog.schedule).variant}
+        r["ms"] = gpu_ms(lambda: CK.fused_eval_uint(
+            *plan, words, ir.n_inputs, schedule=prog.schedule),
+            TIMED_REPS, True)
+        r["plain_ms"] = gpu_ms(lambda: CS.population_eval_uint(
+            *plan, words, ir.n_inputs), PLAIN_REPS, False)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            [(ir.n_inputs, ir.n_gates, ir.n_outputs, W)], True)
+        # a dispatch's parts on the host's clock, each ending on the host
+        eng = CircuitServingEngine(prog, max_batch=DEFAULT_MAX_BATCH)
+        eng.warmup()
+        x = streams[name][:DEFAULT_MAX_BATCH]
+        parts = {"prepare_ms": [], "eval_ms": [], "classify_batch_ms": []}
+        for _ in range(TIMED_REPS):
+            t0 = time.perf_counter()
+            w, _ = eng.prepare_packed_batch(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prog.eval_words(w)
+            t2 = time.perf_counter()
+            eng.classify_batch(x)
+            t3 = time.perf_counter()
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(v * 1e3)
+        r.update({k: float(np.median(v)) for k, v in parts.items()})
+        shape[name] = r
+    fl = CK.fleet_plan(plans, dev)
+    words_t, W_list = fl.pad_words(words_list)
+    fleet_shape = {"tenants": len(plans), "W": max(W_list),
+                   "G_padded": int(fl.op.shape[1]),
+                   "depth": fl.schedule.depth}
+    got = CK.fleet_eval_words(plans, words_list)
+    want = CS.population_eval_uint(*fl[:4], words_t, fl.n_in_max)
+    mismatches += sum(int(not torch.equal(g, want[t, : W_list[t] * 32]))
+                      for t, g in enumerate(got))
+    fleet_shape["ms"] = gpu_ms(lambda: CK.fleet_eval_words(plans, words_list),
+                               TIMED_REPS, True)
+    fleet_shape["kernel_only_ms"] = gpu_ms(
+        lambda: CK.fused_eval_uint(*fl[:4], words_t, fl.n_in_max,
+                                   schedule=fl.schedule), TIMED_REPS, True)
+    fleet_shape["plain_ms"] = gpu_ms(
+        lambda: CS.population_eval_uint(*fl[:4], words_t, fl.n_in_max),
+        PLAIN_REPS, False)
+    fleet_shape["bound_ms"], fleet_shape["bound_by"] = bound_ms(
+        [(p[4], np.size(p[0]), np.size(p[3]), w.shape[1])
+         for p, w in zip(plans, words_list)], True)
+    say("fleet_kernels", nvidia_smi=smi, readings=DEFAULT_MAX_BATCH,
+        tenants=shape, fleet_eval_words=fleet_shape, mismatches=mismatches)
+    if mismatches:
+        fail(f"fleet: {mismatches} kernel launches at the fleet's shape "
+             f"differ from the plain version")
+
+    # the CLI on the card, each command a process of its own: `replay`
+    # in-process, then `serve` on 127.0.0.1:0 (`serve_forever`, stopped
+    # by SIGINT as an operator would) with `replay --connect` against it
+    import signal
+
+    on = [] if dev.type == "cuda" else ["--device", str(dev)]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cli_cmd = [sys.executable, "-m", "repro_torch.serve"]
+    replay = ["--emit-dir", str(EMIT_DIR), "--readings",
+              str(FLEET_CLI_READINGS), "--producers", "2", *on]
+    t0 = time.perf_counter()
+    cli = subprocess.run([*cli_cmd, "replay", *replay], capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT), env=env)
+    cli_row = {"replay": {"seconds": time.perf_counter() - t0,
+                          "returncode": cli.returncode,
+                          "stdout": cli.stdout.strip().splitlines()[-6:]}}
+    server = subprocess.Popen(
+        [*cli_cmd, "serve", "--emit-dir", str(EMIT_DIR), "--port", "0", *on],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT), env=env)
+    try:
+        t0 = time.perf_counter()
+        line = server.stdout.readline()      # "[serve] ... listening on h:p"
+        address = line.split("listening on ")[-1].split()[0] \
+            if "listening on" in line else None
+        remote = subprocess.run(
+            [*cli_cmd, "replay", *replay, "--connect", str(address),
+             "--batch", str(FLEET_FRAME)], capture_output=True, text=True,
+            timeout=600, cwd=str(ROOT), env=env) if address else None
+        server.send_signal(signal.SIGINT)
+        out, err = server.communicate(timeout=120)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    cli_row["serve"] = {"listening": line.strip(),
+                        "returncode": server.returncode,
+                        "stdout": out.strip().splitlines()[-2:]}
+    cli_row["replay_connect"] = {
+        "seconds": time.perf_counter() - t0,
+        "returncode": None if remote is None else remote.returncode,
+        "stdout": [] if remote is None
+        else remote.stdout.strip().splitlines()[-6:]}
+    say("fleet_cli", nvidia_smi=smi, **cli_row)
+    cli_ok = (cli.returncode == 0 and remote is not None
+              and remote.returncode == 0 and server.returncode == 0
+              and any("draining" in ln for ln in out.splitlines()))
+    bad = [f"{m}.{k}" for m, c in checks.items() for k, v in c.items()
+           if not v]
+    if not cli_ok:
+        bad.append("cli")
+        print(cli.stderr[-2000:], err[-2000:],
+              "" if remote is None else remote.stderr[-2000:],
+              file=sys.stderr)
+    if bad:
+        fail(f"fleet: failed checks {bad}")
+    return {"modes": rows, "checks": checks, "at_fleet_shape": shape,
+            "fleet_eval_words_at_fleet_shape": fleet_shape, "cli": cli_row,
+            "settings": {"readings_per_tenant": FLEET_STREAM,
+                         "max_batch": DEFAULT_MAX_BATCH,
+                         "deadline_ms": DEFAULT_DEADLINE_MS,
+                         "producers": FLEET_PRODUCERS,
+                         "frame": FLEET_FRAME, "workers": FLEET_WORKERS}}
+
+
 def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
     """A float32 model on the card (kernels) against the CPU (plain
     versions): one prompt and 8 greedy steps, the CPU fed the card's
@@ -1974,6 +2437,13 @@ def main() -> int:
     # -- 4c. the pipeline from sensor floats to served labels, counted ------
     pipe = pipeline_phase(dev, smi, camp_prob, camp_res)
 
+    # -- 4d. the MLP baselines on the card; 4e. the fleet, counted ----------
+    baselines_phase(dev, smi)
+    fleet_out = fleet_phase(dev, smi)
+    fleet_launches = {m: {k: r["launches"][k] for k in
+                          ("fused_eval_uint", "fleet_eval_words")}
+                      for m, r in fleet_out["modes"].items()}
+
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
         quant="ternary_packed"))
@@ -2130,6 +2600,15 @@ def main() -> int:
                      "counts at the end of each phase"},
          "pipeline": {"launches": pipe["launches"]["fused_eval_uint"],
                       "launches_by_variant": pipe["launches_by_variant"]},
+         "fleet": {"launches": {m: v["fused_eval_uint"]
+                                for m, v in fleet_launches.items()},
+                   "worker_launches": [
+                       w["launches"]["fused_eval_uint"] for w in
+                       fleet_out["modes"]["workers_2"]["worker_launches"]],
+                   "at_fleet_shape": {n: {k: r[k] for k in (
+                       "W", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "variant")} for n, r in
+                       fleet_out["at_fleet_shape"].items()}},
          "cases": stats["fused_eval_uint"]["cases"],
          "mismatches": stats["fused_eval_uint"]["mismatches"],
          "shape": "arrhythmia, 65536 readings"},
@@ -2160,6 +2639,12 @@ def main() -> int:
          "columns_per_block": fleet_rows[1]["columns_per_block"],
          "chain_bound_ms": fleet_rows[1]["chain_bound_ms"],
          "kernel_only_ms": fleet_rows[1]["fleet_kernel_ms"],
+         "fleet": {"launches": fleet_launches["megakernel"][
+                       "fleet_eval_words"],
+                   "megakernel_peak_tenants": fleet_out["modes"][
+                       "megakernel"]["megakernel_peak_tenants"],
+                   "at_fleet_shape": fleet_out[
+                       "fleet_eval_words_at_fleet_shape"]},
          "cases": stats["fleet_eval_words"]["cases"],
          "mismatches": stats["fleet_eval_words"]["mismatches"],
          "shape": "five golden tenants, 65536 readings each"},

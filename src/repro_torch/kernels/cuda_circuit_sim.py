@@ -80,7 +80,8 @@ MAX_COLUMNS = 32          # word columns per level-walk block
 LEVEL_MIN_THREADS = 128   # enough threads to stage the schedule quickly
 LEVEL_MAX_THREADS = 512
 GLOBAL_THREADS = 128      # columns per global-scratch block
-FLEET_CACHE = 8           # padded fleets kept for reuse
+FLEET_CACHE = 32          # padded fleets kept for reuse: every
+                          # subset of a five-tenant manifest
 
 
 class Plan(NamedTuple):
@@ -614,12 +615,14 @@ def pad_plans(plans: list, device) -> FleetPlan:
 
 
 _FLEETS: OrderedDict[tuple, FleetPlan] = OrderedDict()
+_FLEETS_LOCK = threading.Lock()
 
 
 def fleet_plan(plans: list, device) -> FleetPlan:
     """`pad_plans` of `plans` on `device`, built on the first call with
     these plans and returned from a cache, keyed by the plans' contents,
-    on later ones (the last `FLEET_CACHE` sets are kept)."""
+    on later ones (the last `FLEET_CACHE` sets are kept).  Safe to call
+    from several dispatch threads: a set of plans is padded once."""
     h = hashlib.blake2b(digest_size=16)
     for p in plans:
         h.update(repr(int(p[4])).encode())
@@ -628,13 +631,14 @@ def fleet_plan(plans: list, device) -> FleetPlan:
             h.update(f"{a.dtype.str}{a.shape}".encode())
             h.update(memoryview(a).cast("B"))
     key = (str(torch.device(device)), h.hexdigest())
-    fleet = _FLEETS.get(key)
-    if fleet is None:
-        fleet = _FLEETS[key] = pad_plans(plans, device)
-        while len(_FLEETS) > FLEET_CACHE:
-            _FLEETS.popitem(last=False)
-    else:
-        _FLEETS.move_to_end(key)
+    with _FLEETS_LOCK:
+        fleet = _FLEETS.get(key)
+        if fleet is None:
+            fleet = _FLEETS[key] = pad_plans(plans, device)
+            while len(_FLEETS) > FLEET_CACHE:
+                _FLEETS.popitem(last=False)
+        else:
+            _FLEETS.move_to_end(key)
     return fleet
 
 

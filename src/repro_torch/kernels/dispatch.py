@@ -18,7 +18,8 @@ the CPU.
   * `program_eval_words` runs one program over a large batch and splits
     the packed *word* axis across the devices;
   * `fleet_eval_words` runs every tenant of a manifest in one launch;
-  * `replica_devices` pins serving replicas round-robin to CUDA devices.
+  * `replica_devices` pins serving replicas round-robin to CUDA devices;
+  * `configure_worker_process` sizes a serve worker's thread pools.
 
 Results come back to the host as int64 numpy arrays, as the reference's do.
 """
@@ -31,6 +32,31 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import circuit_sim as CS
 from repro_torch.kernels import cuda_circuit_sim as CK
 from repro_torch.kernels.circuit_sim import check_plan
+
+
+def configure_worker_process(n_procs: int = 1) -> None:
+    """Cap math-library threading for a serve worker subprocess.
+
+    A fleet spawning N worker processes on an M-core host wants each
+    child's intra-op thread pools sized ~M/N, not M, or N children times M
+    threads oversubscribe the host and the per-dispatch latency the
+    deadline policy feeds on turns to noise.  `setdefault` keeps any
+    operator-provided caps of the OpenMP/MKL/OpenBLAS pools (read when
+    those libraries start), and PyTorch's own intra-op pool is set to the
+    same share.  Device selection is untouched: a worker's programs go to
+    the device the fleet names.
+    """
+    import os
+
+    if n_procs < 1:
+        raise ValueError("n_procs must be >= 1")
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+    per = str(max(1, cores // n_procs))
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                "MKL_NUM_THREADS"):
+        os.environ.setdefault(var, per)
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 
 def replica_devices(index: int, devices=None) -> tuple:

@@ -753,3 +753,71 @@ def test_lowered_classifier_serves_on_card_as_on_cpu(cuda):
     np.testing.assert_array_equal(card, cpu)
     xb = CircuitProgram.from_classifier(cc, "cpu").binarize(x[:512]).numpy()
     np.testing.assert_array_equal(card[:512], T.predict_exact(tnn, xb))
+
+
+@pytest.mark.parametrize("mode", ["replicas_2", "megakernel"])
+def test_fleet_serves_golden_tenants_on_card(cuda, mode):
+    from repro_torch.serve import ClassifierFleet
+
+    kw = {"replicas": 2} if mode == "replicas_2" else {"megakernel": True}
+    fleet = ClassifierFleet.from_emit_dir(TESTS / "golden_emit", device=cuda,
+                                          autostart=False, **kw)
+    CK.reset_launches()
+    handles = {}
+    for name in fleet.tenants:
+        fix = np.load(TESTS / "golden" / f"{name}.npz")
+        handles[name] = (fix["labels"], fleet.submit_many(name, fix["x"])[0])
+    fleet.start()
+    try:
+        fleet.flush(timeout=120.0)
+        for name, (labels, reqs) in handles.items():
+            np.testing.assert_array_equal(
+                [r.result(60.0) for r in reqs], labels, err_msg=name)
+        assert fleet.errors == []
+        s = fleet.stats_summary()
+    finally:
+        fleet.shutdown(drain=True)
+    assert {row["device"] for row in s["tenants"].values()} == {str(cuda)}
+    assert CK.VARIANT_LAUNCHES["global_scratch"] == 0
+    if mode == "megakernel":
+        assert CK.LAUNCHES["fused_eval_uint"] == 0
+        assert CK.LAUNCHES["fleet_eval_words"] == \
+            s["megakernel"]["launches"] > 0
+    else:
+        assert CK.LAUNCHES["fleet_eval_words"] == 0
+        assert CK.LAUNCHES["fused_eval_uint"] == s["fleet"]["n_batches"] > 0
+
+
+def test_fleet_workers_serve_on_card(cuda):
+    from repro_torch.serve import ClassifierFleet
+
+    fleet = ClassifierFleet.from_emit_dir(TESTS / "golden_emit", device=cuda,
+                                          workers=1, deadline_ms=200.0)
+    try:
+        host = fleet._worker_hosts[str(cuda)]
+        before = host.launches()[0]["launches"]["fused_eval_uint"]
+        for name in fleet.tenants:
+            fix = np.load(TESTS / "golden" / f"{name}.npz")
+            reqs, _, _ = fleet.submit_many(name, fix["x"])
+            np.testing.assert_array_equal(
+                [r.result(60.0) for r in reqs], fix["labels"], err_msg=name)
+        after = host.launches()[0]["launches"]["fused_eval_uint"]
+        assert after - before >= len(fleet.tenants)
+        assert fleet.errors == []
+    finally:
+        fleet.shutdown()
+
+
+def test_mlp_baseline_on_card_as_on_cpu(cuda):
+    from repro_torch.core import baselines as B
+    from repro_torch.data.tabular import DATASETS, make_dataset
+
+    ds = make_dataset("redwine")
+    hidden = DATASETS["redwine"].mlp_topology[1]
+    for pow2 in (False, True):
+        card = B.train_mlp_baseline(ds, hidden, pow2=pow2, device=cuda)
+        cpu = B.train_mlp_baseline(ds, hidden, pow2=pow2, device="cpu")
+        assert abs(card.test_acc - cpu.test_acc) <= 0.03
+        w = torch.randn(4096, device=cuda) * 0.5
+        np.testing.assert_array_equal(B._pow2_ste(w).cpu().numpy(),
+                                      B._pow2_ste(w.cpu()).numpy())

@@ -7,7 +7,9 @@
   problem, the datasets) running a tiny cardio search; nor does the
   pipeline (QAT, the optimizer, lowering, the Verilog writer and reader,
   the bundle writer and the export CLI) training and emitting a cardio
-  classifier.
+  classifier; nor does the fleet stack (`repro_torch.serve`: a CPU fleet
+  over the golden manifest, the MLP baselines, `python -m
+  repro_torch.serve --help`).
 * No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
   calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
@@ -171,6 +173,42 @@ print(json.dumps({{"ok": ok, "bad": bad}}))
     assert res == {"ok": True, "bad": []}
 
 
+def test_fleet_loads_neither_jax_nor_repro():
+    script = f"""
+import json, subprocess, sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+import repro_torch.serve
+from repro_torch.core.baselines import mlp_hw_cost
+from repro_torch.serve import ClassifierFleet
+from repro_torch.serve.server import FleetServer
+from repro_torch.serve.client import FleetClient
+fix = np.load({str(ROOT / 'tests' / 'golden' / 'cardio.npz')!r})
+fleet = ClassifierFleet.from_emit_dir({str(EMIT_DIR)!r}, device="cpu",
+                                      tenants=["cardio"], deadline_ms=50.0)
+server = FleetServer(fleet)
+host, port = server.start_background()
+with FleetClient(host, port) as client:
+    ok = bool((client.classify("cardio", fix["x"], timeout=60.0)
+               == fix["labels"]).all())
+server.stop()
+fleet.shutdown()
+ok &= mlp_hw_cost([np.ones((2, 2), np.int32)], 4, 8, False, None).area_mm2 > 0
+cli = subprocess.run([sys.executable, "-m", "repro_torch.serve", "--help"],
+                     capture_output=True, text=True, timeout=120,
+                     env={{"PYTHONPATH": {str(ROOT / 'src')!r}}})
+ok &= cli.returncode == 0 and "replay" in cli.stdout
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({{"ok": ok, "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=180, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
 def test_entry_points_without_device_need_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -211,4 +249,20 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         export.main("cardio", "unused", epochs=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CircuitProgram.from_netlist(nl)
+    from repro_torch.core import baselines
+    from repro_torch.serve import ClassifierFleet, TenantSpec, WorkerHost
+    from repro_torch.serve import __main__ as serve_cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClassifierFleet.from_emit_dir(EMIT_DIR, tenants=["cardio"])
+    prog = A.load_program(EMIT_DIR / "cardio_program.npz", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClassifierFleet([TenantSpec(name="cardio", program=prog)],
+                        warmup=False, autostart=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WorkerHost(None, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        baselines.train_mlp_baseline(make_dataset("cardio"), 3, epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["replay", "--emit-dir", str(EMIT_DIR),
+                        "--replay", "cardio", "--readings", "4"])
     assert resolve_device("cpu") == torch.device("cpu")
