@@ -135,6 +135,36 @@ package) and prints one JSON object per phase:
      host parts; `fleet_cli` runs `python -m repro_torch.serve replay` on
      the card, then `serve` on port 0 with `replay --connect` against it
      (each must exit 0; the server stops on SIGINT after draining);
+  4f. `evolve` — the campaign layer (`repro_torch.evolve`, `checkpoint`,
+     `compile.zoo`, `autopilot`) on the card, the gate-walk counters
+     zeroed first: (a) the campaign phase's arrhythmia products written
+     to a phase-cache entry and read back by name, searched by a
+     `Campaign` at `python -m repro_torch.evolve`'s defaults (4 islands x
+     pop 24 x 8 epochs x 5 generations, migrate_k 2, a checkpoint an
+     epoch): one `fused_eval_uint` launch an objective call; the archive
+     and island histories equal to a CPU campaign's on the same products,
+     to a campaign stepped by 2 spawned workers on the card, and to a
+     fresh campaign resumed from epoch 3's checkpoint; 3 rounds of
+     `attach_tnn_drift` at rate 0.25 with objectives equal to the CPU's
+     and to the card's `_eval_one`; (b) `python -m repro_torch.evolve
+     --problem tnn --dataset cardio` from scratch on the card at a cut
+     budget (`EVOLVE_BUDGET`, `EVOLVE_CLI_EPOCHS` epochs): serial, with
+     `--workers 2`, and killed after epoch 1 then resumed with `--workers
+     2`, all three archives equal; two `train_tnn` runs on the card at the
+     CLI's settings compared (printed, not gated); (c) a zoo of cardio and
+     breast_cancer x {base, lean} built by 2 spawned workers on the card
+     and served by `ClassifierFleet(megakernel=True)`: labels equal offline
+     `predict`, every dispatch a `fleet_eval_words` launch; (d) two
+     autopilot rounds on the card over (b)'s emitted winner (its sabotaged
+     copy rolls back, the winner promotes), then `python -m
+     repro_torch.autopilot run` SIGKILLed between round 1's decision and
+     its execution and resumed: the journal's decisions equal an
+     uninterrupted run's.  Printed: generations/s, objective
+     individuals/s, launches and the memo's hit share per epoch,
+     checkpoint save and restore ms, epoch seconds serial and with 2
+     workers, zoo entries/s, autopilot seconds a round, and the
+     objective's launch at pop 24 against its plain version and its
+     bytes, operations and chain bounds;
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
      from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
@@ -194,9 +224,11 @@ package) and prints one JSON object per phase:
      columns a block and chain bound, `fused_eval_uint`'s with a
      `campaign` field: its launches by phase and the two campaign
      launches timed, a `pipeline` field with the pipeline's launches
-     (`simulate_population`'s too), and a `fleet` field with the fleet's
+     (`simulate_population`'s too), a `fleet` field with the fleet's
      launches by mode and the kernels at the fleet's shape (on
-     `fleet_eval_words`' entry too); the ternary matmul's entry at decode
+     `fleet_eval_words`' entry too, with the zoo's megakernel launches),
+     and an `evolve` field with the campaign's launches, by epoch, and
+     its objective launch timed; the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
      variant; the popcount's with a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
@@ -295,6 +327,29 @@ FLEET_PRODUCERS = 2
 FLEET_FRAME = 256
 FLEET_WORKERS = 2
 FLEET_CLI_READINGS = 2048
+# The evolve phase: (a) a campaign at `python -m repro_torch.evolve`'s
+# defaults (EVOLVE_CAMPAIGN, nothing cut) over the campaign phase's
+# arrhythmia products, resumed from EVOLVE_RESUME_EPOCH's checkpoint,
+# drifted EVOLVE_DRIFT_ROUNDS rounds at EVOLVE_DRIFT_RATE, and stepped by
+# EVOLVE_WORKERS spawned workers; (b) the CLI on cardio from scratch with
+# the Phase-1/2 budget cut to EVOLVE_BUDGET (the reference's defaults: 3
+# tau points a metric x 500 generations, 30,000 PCC samples) and the
+# campaign to EVOLVE_CLI_EPOCHS epochs (8), so that its four runs take
+# about a minute; (c) a zoo of EVOLVE_ZOO_DATASETS x {base, lean} at
+# EVOLVE_ZOO_CAMPAIGN over EVOLVE_BUDGET's products; (d) two autopilot
+# rounds at the CLI's defaults.
+EVOLVE_CAMPAIGN = {"n_islands": 4, "pop_size": 24, "n_epochs": 8,
+                   "gens_per_epoch": 5, "migrate_k": 2}
+EVOLVE_RESUME_EPOCH = 3
+EVOLVE_DRIFT_RATE = 0.25
+EVOLVE_DRIFT_ROUNDS = 3
+EVOLVE_WORKERS = 2
+EVOLVE_BUDGET = {"tnn_epochs": 12, "cgp_points": 1, "cgp_iters": 100,
+                 "pcc_samples": 4000}
+EVOLVE_CLI_EPOCHS = 4
+EVOLVE_ZOO_DATASETS = ("cardio", "breast_cancer")
+EVOLVE_ZOO_CAMPAIGN = {"islands": 2, "pop": 12, "epochs": 2,
+                       "gens_per_epoch": 3, "migrate_k": 2}
 # WKV-6 envelope: first-order rounding of the recurrence in float32 is at
 # most u * (dh + 2T + 2) times the same recurrence run on absolute values
 # (u = eps/2: dh terms in each y sum, two roundings a token carried in the
@@ -411,6 +466,13 @@ def bound_ms(programs: list[tuple[int, int, int, int]], decode: bool,
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ops_bound_ms(programs: list[tuple[int, int, int, int]]) -> float:
+    """The operations half of `bound_ms`: 6 int ops per gate per word of
+    single-program walks `(n_in, G, n_out, W)` over the CUDA-core peak."""
+    return sum(OPS_PER_GATE_WORD * G * W for _, G, _, W in programs) \
+        / PEAK_OPS_PER_S * 1e3
 
 
 def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
@@ -971,8 +1033,10 @@ def campaign_phase(dev, smi: str) -> tuple:
     rows = [prob.out_cands[int(k)] for k in pop[:, len(prob.hidden_idx):]
             .reshape(-1)]
     W = args[4].shape[-1]
-    obj_bound = bound_ms([(nl.n_inputs, nl.n_gates, nl.n_outputs, W)
-                          for nl in rows], True)
+    obj_programs = [(nl.n_inputs, nl.n_gates, nl.n_outputs, W)
+                    for nl in rows]
+    obj_bound = bound_ms(obj_programs, True)
+    mhz = max_sm_clock_mhz()
     # Phase 1's launch shape at the widest size: lambda = 4 children of the
     # 933-node grid over 2**17 vectors, the kernel alone with a schedule,
     # and one fitness call as a generation pays it (schedule built on the
@@ -999,8 +1063,9 @@ def campaign_phase(dev, smi: str) -> tuple:
         t = time.perf_counter()
         kids.pc_errors(words, true_dev, device=dev)
         fitness_ms.append((time.perf_counter() - t) * 1e3)
-    cgp_bound = bound_ms([(n_big, nl.n_gates, nl.n_outputs, words.shape[1])
-                          for nl in kid_nls], True, shared_plane=True)
+    cgp_programs = [(n_big, nl.n_gates, nl.n_outputs, words.shape[1])
+                    for nl in kid_nls]
+    cgp_bound = bound_ms(cgp_programs, True, shared_plane=True)
 
     # held against the CPU, bit for bit: the widest size's truncation
     # sweep (one launch of n - 2 rows), then a CGP run, a PCC size, every
@@ -1088,12 +1153,17 @@ def campaign_phase(dev, smi: str) -> tuple:
             "individuals_per_s": cfg.nsga_pop / float(np.median(call_ms))
             * 1e3,
             "kernel_share": kernel_ms / float(np.median(call_ms)),
-            "bound_ms": obj_bound[0], "bound_by": obj_bound[1]},
+            "bound_ms": obj_bound[0], "bound_by": obj_bound[1],
+            "ops_bound_ms": ops_bound_ms(obj_programs),
+            "schedule_depth": int(args[-1].depth),
+            "chain_bound_ms": chain_bound_ms(args[-1].depth, mhz)},
         "cgp_launch": {
             "n": n_big, "P": kids.size, "G": kids.n_gates,
             "W": int(words.shape[1]), "kernel_ms": cgp_kernel_ms,
             "plain_ms": cgp_plain_ms, "bound_ms": cgp_bound[0],
             "bound_by": cgp_bound[1], "schedule_depth": sched.depth,
+            "ops_bound_ms": ops_bound_ms(cgp_programs),
+            "chain_bound_ms": chain_bound_ms(sched.depth, mhz),
             "fitness_call_p50_ms": float(np.median(fitness_ms))},
         "counts": counts, "checks": checks,
     }
@@ -1345,7 +1415,8 @@ def pipeline_phase(dev, smi: str, prob, res) -> dict:
         by_variant = dict(CK.VARIANT_LAUNCHES)
 
         # each card-trained program's launch at the engine's batch, timed
-        # after the count: the kernel, its plain version and the bound
+        # after the count: the kernel, its plain version and the bounds
+        mhz = max_sm_clock_mhz()
         for name, prog in progs.items():
             ir = prog.ir
             x = make_dataset(name).x_test
@@ -1360,9 +1431,11 @@ def pipeline_phase(dev, smi: str, prob, res) -> dict:
                 TIMED_REPS, True)
             row["plain_ms"] = gpu_ms(lambda: CS.population_eval_uint(
                 *plan, words, ir.n_inputs), PLAIN_REPS, False)
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                [(ir.n_inputs, ir.n_gates, ir.n_outputs, words.shape[1])],
-                True)
+            program = [(ir.n_inputs, ir.n_gates, ir.n_outputs,
+                        words.shape[1])]
+            row["bound_ms"], row["bound_by"] = bound_ms(program, True)
+            row["ops_bound_ms"] = ops_bound_ms(program)
+            row["chain_bound_ms"] = chain_bound_ms(ir.depth, mhz)
             row["kernel_equals_plain"] = bool(torch.equal(
                 CK.fused_eval_uint(*plan, words, ir.n_inputs,
                                    schedule=prog.schedule),
@@ -1704,6 +1777,7 @@ def fleet_phase(dev, smi: str) -> dict:
              for row in load_manifest(EMIT_DIR)}
     shape, words_list, plans = {}, [], []
     mismatches = 0
+    mhz = max_sm_clock_mhz()
     for name, prog in progs.items():
         ir = prog.ir
         plan = [torch.from_numpy(a).to(dev) for a in D.check_plan(
@@ -1725,8 +1799,10 @@ def fleet_phase(dev, smi: str) -> dict:
             TIMED_REPS, True)
         r["plain_ms"] = gpu_ms(lambda: CS.population_eval_uint(
             *plan, words, ir.n_inputs), PLAIN_REPS, False)
-        r["bound_ms"], r["bound_by"] = bound_ms(
-            [(ir.n_inputs, ir.n_gates, ir.n_outputs, W)], True)
+        program = [(ir.n_inputs, ir.n_gates, ir.n_outputs, W)]
+        r["bound_ms"], r["bound_by"] = bound_ms(program, True)
+        r["ops_bound_ms"] = ops_bound_ms(program)
+        r["chain_bound_ms"] = chain_bound_ms(ir.depth, mhz)
         # a dispatch's parts on the host's clock, each ending on the host
         eng = CircuitServingEngine(prog, max_batch=DEFAULT_MAX_BATCH)
         eng.warmup()
@@ -1834,6 +1910,422 @@ def fleet_phase(dev, smi: str) -> dict:
                          "deadline_ms": DEFAULT_DEADLINE_MS,
                          "producers": FLEET_PRODUCERS,
                          "frame": FLEET_FRAME, "workers": FLEET_WORKERS}}
+
+
+def evolve_phase(dev, smi: str, prob) -> dict:
+    """`evolve` — the campaign layer on the card, each part against the
+    CPU or against itself interrupted:
+
+    (a) the campaign phase's arrhythmia products (the golden TNN, its PCC
+        library and output PC library) written to a phase-cache entry and
+        read back by `build_tnn_problem(phase_key=...)`, searched by a
+        `Campaign` at `python -m repro_torch.evolve`'s defaults
+        (`EVOLVE_CAMPAIGN`, checkpointing every epoch), counted: the
+        archive must equal a CPU campaign's on the same products and a
+        campaign with `EVOLVE_WORKERS` spawned workers on the card; a
+        fresh campaign resumed from epoch `EVOLVE_RESUME_EPOCH`'s
+        checkpoint must end bit-identical; `EVOLVE_DRIFT_ROUNDS` rounds of
+        `attach_tnn_drift` (rate `EVOLVE_DRIFT_RATE`) must give the CPU's
+        objectives and the card's own `_eval_one`;
+    (b) `python -m repro_torch.evolve --problem tnn --dataset cardio` from
+        scratch on the card at `EVOLVE_BUDGET`: serially, with `--workers
+        2`, and killed after epoch 1 then resumed with `--workers 2`; the
+        three archives must be equal; two `train_tnn` runs on the card at
+        the CLI's settings are compared (printed, not gated);
+    (c) a zoo of `EVOLVE_ZOO_DATASETS` x {base, lean} built by
+        `EVOLVE_WORKERS` spawned workers on the card, then served by
+        `ClassifierFleet.from_emit_dir(..., megakernel=True)`: labels must
+        equal offline `predict`, every dispatch a `fleet_eval_words`
+        launch;
+    (d) two autopilot rounds on the card over (b)'s emitted winner (its
+        sabotaged copy must roll back, the winner promote), then `python
+        -m repro_torch.autopilot run` SIGKILLed between round 1's decision
+        and its execution and resumed, which must reach the decisions of
+        an uninterrupted run.
+    Printed: generations/s, objective individuals/s, gate-walk launches
+    and the memo's hit share per epoch, checkpoint save and restore ms,
+    epoch seconds with workers against serial, zoo entries/s and
+    autopilot seconds per round; the objective's launch timed against its
+    plain version and bounds."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.autopilot import (Autopilot, AutopilotConfig,
+                                       Candidate, DecisionJournal,
+                                       PromotionPolicy, ScriptedSource,
+                                       dataset_traffic, sabotage_classifier)
+    from repro_torch.compile import artifact as A
+    from repro_torch.compile.zoo import build_zoo, make_entries
+    from repro_torch.core import tnn as T
+    from repro_torch.data.tabular import make_dataset
+    from repro_torch.evolve import (Campaign, CampaignConfig, ProblemSpec,
+                                    attach_tnn_drift, build_tnn_problem,
+                                    compile_archive_winner)
+    from repro_torch.evolve import phase_cache as PCache
+    from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.serve import ClassifierFleet
+
+    on_card = dev.type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_evolve_"))
+    cache = tmp / "phase_cache"
+    checks: dict[str, bool] = {}
+    out: dict = {"nvidia_smi": smi}
+    try:
+        # -- (a) a campaign at the CLI's defaults on arrhythmia -------------
+        key = "arrhythmia_campaign_phase"
+        PCache.save_phase(cache, key, prob.tnn, {}, prob.pcc_lib,
+                          prob.pc_out_lib)
+        specs = {d: ProblemSpec("tnn", {"dataset": "arrhythmia",
+                                        "device": str(d),
+                                        "cache_dir": str(cache),
+                                        "phase_key": key})
+                 for d in (dev, "cpu")}
+        problems = {d: s.build() for d, s in specs.items()}
+        walls: list[float] = []
+        rows = [0]
+
+        def timed(objective):
+            def call(pop):
+                t = time.perf_counter()
+                f = objective(pop)
+                walls.append(time.perf_counter() - t)
+                rows[0] += pop.shape[0]
+                return f
+            return call
+
+        def campaign(d, ckpt=None, workers=0, objective=None, **kw):
+            p = problems[d]
+            cfg = CampaignConfig(**{**EVOLVE_CAMPAIGN, **kw}, seed=SEED,
+                                 device=str(d), workers=workers)
+            return Campaign(p.domains, objective or p.objective, cfg,
+                            checkpoint_dir=ckpt,
+                            seed_population=p.seed_population, name=p.name,
+                            problem_spec=specs[d])
+
+        epochs: list[dict] = []
+
+        def mark(epoch: int, c) -> None:
+            sync()
+            epochs.append({"epoch": epoch, "t": time.perf_counter(),
+                           "launches": CK.LAUNCHES["fused_eval_uint"],
+                           **c.cache_history[-1]})
+            if epoch == EVOLVE_RESUME_EPOCH:
+                shutil.copytree(Path(c.ckpt.dir) / f"step_{epoch}",
+                                tmp / "resume" / f"step_{epoch}")
+
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        with campaign(dev, ckpt=str(tmp / "ckpt"),
+                      objective=timed(problems[dev].objective)) as c:
+            card = c.run(on_epoch=mark)
+            sync()
+            serial_s = time.perf_counter() - t0
+            launches = dict(CK.LAUNCHES)
+            by_variant = dict(CK.VARIANT_LAUNCHES)
+            schedule_builds = dict(CK.SCHEDULE_LAUNCHES)
+            save_ms, restore_ms = [], []
+            for _ in range(5):
+                t = time.perf_counter()
+                c._save(c.next_epoch - 1)
+                save_ms.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                c.ckpt.restore(c._template(), to_device=False)
+                restore_ms.append((time.perf_counter() - t) * 1e3)
+        per_epoch, last = [], {"t": t0, "launches": 0, "hits": 0,
+                               "misses": 0}
+        for e in epochs:
+            d_hits, d_miss = e["hits"] - last["hits"], \
+                e["misses"] - last["misses"]
+            per_epoch.append({
+                "epoch": e["epoch"], "seconds": e["t"] - last["t"],
+                "launches": e["launches"] - last["launches"],
+                "memo_hits": d_hits, "memo_misses": d_miss,
+                "memo_hit_share": d_hits / max(1, d_hits + d_miss)})
+            last = e
+        cfg = EVOLVE_CAMPAIGN
+        island_generations = cfg["n_islands"] * cfg["n_epochs"] \
+            * cfg["gens_per_epoch"]
+        t0 = time.perf_counter()
+        cpu = campaign("cpu").run()
+        cpu_s = time.perf_counter() - t0
+
+        def same(a, b) -> bool:
+            return bool(np.array_equal(a.archive_x, b.archive_x)
+                        and np.array_equal(a.archive_f, b.archive_f)
+                        and a.histories == b.histories)
+
+        checks["campaign_equals_cpu"] = same(card, cpu)
+        with campaign(dev, ckpt=str(tmp / "resume")) as c:
+            resumed = c.run()
+        checks["resume_from_epoch_3"] = same(resumed, card) and \
+            resumed.resumed_from == EVOLVE_RESUME_EPOCH
+        workers_epochs = []
+
+        def mark_workers(epoch: int, c) -> None:
+            sync()
+            workers_epochs.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        with campaign(dev, workers=EVOLVE_WORKERS) as c:
+            par = c.run(on_epoch=mark_workers)
+        workers_s = np.diff([t0] + workers_epochs).tolist()
+        checks["workers_equal_serial"] = same(par, card) and \
+            par.cache_history[-1]["mode"] == "parallel"
+        # drift: card against CPU, and the card's objective against its own
+        # serial reference path, round by round
+        drifted = {d: attach_tnn_drift(s.build(), EVOLVE_DRIFT_RATE,
+                                       seed=SEED) for d, s in specs.items()}
+        pop = np.concatenate([card.archive_x, np.random.default_rng(
+            SEED).integers(0, problems[dev].domains[None, :],
+                           size=(cfg["pop_size"],
+                                 problems[dev].domains.size))])
+        drift_ok = True
+        for r in range(EVOLVE_DRIFT_ROUNDS):
+            for p in drifted.values():
+                p.drift(r)
+            got = drifted[dev].objective(pop)
+            drift_ok &= bool(np.array_equal(
+                got, drifted["cpu"].objective(pop)))
+            drift_ok &= all(tuple(got[i]) == drifted[dev].approx._eval_one(x)
+                            for i, x in enumerate(pop[:4]))
+        checks["drift_equals_cpu_and_eval_one"] = drift_ok
+        # the objective's launch at the campaign's population, timed
+        ap = problems[dev].approx
+        pop24 = pop[-cfg["pop_size"]:]
+        args = ap.launch_args(pop24)
+        obj = {"rows": int(args[0].shape[0]), "W": int(args[4].shape[-1]),
+               "depth": int(args[-1].depth)}
+        programs = [(nl.n_inputs, nl.n_gates, nl.n_outputs, obj["W"])
+                    for nl in (ap.out_cands[int(k)] for k in
+                               pop24[:, len(ap.hidden_idx):].reshape(-1))]
+        obj["bound_ms"], obj["bound_by"] = bound_ms(programs, True)
+        obj["ops_bound_ms"] = ops_bound_ms(programs)
+        checks["objective_launch"] = bool(torch.equal(
+            CK.fused_eval_uint(*args), CS.population_eval_uint(*args[:6])))
+        if on_card:
+            obj["kernel_ms"] = gpu_ms(lambda: CK.fused_eval_uint(*args),
+                                      TIMED_REPS, True)
+            obj["plain_ms"] = gpu_ms(
+                lambda: CS.population_eval_uint(*args[:6]), PLAIN_REPS,
+                False)
+            obj["chain_bound_ms"] = chain_bound_ms(obj["depth"],
+                                                   max_sm_clock_mhz())
+        out["campaign"] = {
+            "problem": "arrhythmia golden TNN (274 / 3 / 16), the campaign "
+                       "phase's PCC and output PC libraries",
+            "config": EVOLVE_CAMPAIGN, "archive_size": len(card.archive_x),
+            "seconds": serial_s, "cpu_seconds": cpu_s,
+            "generations_per_s": island_generations / serial_s,
+            "objective_calls": len(walls), "objective_rows": rows[0],
+            "objective_s": sum(walls),
+            "objective_individuals_per_s": rows[0] / sum(walls),
+            "objective_p50_ms": float(np.median(walls)) * 1e3,
+            "launches": launches, "launches_by_variant": by_variant,
+            "schedule_builds": schedule_builds, "per_epoch": per_epoch,
+            "checkpoint_save_ms": float(np.median(save_ms)),
+            "checkpoint_restore_ms": float(np.median(restore_ms)),
+            "epoch_seconds_serial": [e["seconds"] for e in per_epoch],
+            "epoch_seconds_workers": workers_s,
+            "workers": EVOLVE_WORKERS, "objective_launch": obj}
+        if on_card and launches["fused_eval_uint"] != len(walls):
+            fail(f"evolve: {launches['fused_eval_uint']} gate-walk launches "
+                 f"for {len(walls)} objective calls, expected one each")
+
+        # -- (b) the CLI on cardio from scratch, killed and resumed ----------
+        on = [] if on_card else ["--device", str(dev)]
+        env = {**os.environ, "PYTHONPATH": str(SRC),
+               "REPRO_TORCH_PHASE_CACHE": str(cache)}
+        budget = [f"--{k.replace('_', '-')}={v}"
+                  for k, v in EVOLVE_BUDGET.items()]
+        evolve_cmd = [sys.executable, "-m", "repro_torch.evolve",
+                      "--problem", "tnn", "--dataset", "cardio",
+                      f"--epochs={EVOLVE_CLI_EPOCHS}", *budget, *on]
+
+        def run_cli(cmd, *extra):
+            t = time.perf_counter()
+            r = subprocess.run([*cmd, *map(str, extra)], capture_output=True,
+                               text=True, timeout=900, cwd=str(ROOT),
+                               env=env)
+            return r, time.perf_counter() - t
+
+        cli = {}
+        for name, extra in (
+                ("serial", ("--ckpt-dir", tmp / "ck_serial",
+                            "--out", tmp / "serial.json")),
+                ("workers", ("--workers", EVOLVE_WORKERS, "--ckpt-dir",
+                             tmp / "ck_workers", "--out",
+                             tmp / "workers.json")),
+                ("killed", ("--ckpt-dir", tmp / "ck_kill",
+                            "--kill-after-epoch", 1)),
+                ("resumed", ("--workers", EVOLVE_WORKERS, "--ckpt-dir",
+                             tmp / "ck_kill", "--out", tmp / "resumed.json",
+                             "--emit-dir", tmp / "emit"))):
+            r, s = run_cli(evolve_cmd, *extra)
+            cli[name] = {"seconds": s, "returncode": r.returncode,
+                         "resumed": "resumed from epoch 1" in r.stdout,
+                         "stdout": r.stdout.strip().splitlines()[-3:]}
+            if r.returncode not in (0, -signal.SIGKILL):
+                print(r.stderr[-3000:], file=sys.stderr)
+        fronts = {n: json.loads((tmp / f"{n}.json").read_text())["archive"]
+                  for n in ("serial", "workers", "resumed")
+                  if (tmp / f"{n}.json").exists()}
+        checks["cli_runs"] = (
+            [cli[n]["returncode"] for n in cli] == [0, 0, -signal.SIGKILL, 0]
+            and cli["resumed"]["resumed"])
+        checks["cli_archives_equal"] = len(fronts) == 3 and \
+            fronts["serial"] == fronts["workers"] == fronts["resumed"] != []
+        ds = make_dataset("cardio")
+        qat = [T.train_tnn(ds, T.TNNTrainConfig(
+            n_hidden=ds.spec.topology[1], epochs=EVOLVE_BUDGET["tnn_epochs"],
+            lr=1e-2, seed=SEED), device=dev) for _ in range(2)]
+        cached = PCache.load_phase(cache, PCache.phase_key(
+            "cardio", SEED, EVOLVE_BUDGET["tnn_epochs"],
+            EVOLVE_BUDGET["cgp_points"], EVOLVE_BUDGET["cgp_iters"],
+            EVOLVE_BUDGET["pcc_samples"], device=dev))[0]
+
+        def codes(t) -> tuple:
+            return t.w1t.tobytes(), t.w2t.tobytes()
+
+        out["cli"] = {
+            "budget": EVOLVE_BUDGET, "epochs": EVOLVE_CLI_EPOCHS,
+            "reference_defaults": "tnn-epochs 12, cgp-points 3, cgp-iters "
+                                  "500, pcc-samples 30000, epochs 8",
+            "runs": cli, "archive_size": len(fronts.get("serial", [])),
+            "qat_card_twice_identical": codes(qat[0]) == codes(qat[1]),
+            "qat_card_equals_cli_products": codes(qat[0]) == codes(cached)}
+
+        # -- (c) the zoo, built by spawned workers, served as one fleet ------
+        zoo_budget = {**EVOLVE_ZOO_CAMPAIGN,
+                      "tnn_epochs": EVOLVE_BUDGET["tnn_epochs"],
+                      "cgp_points": EVOLVE_BUDGET["cgp_points"],
+                      "cgp_iters": EVOLVE_BUDGET["cgp_iters"],
+                      "pcc_samples": EVOLVE_BUDGET["pcc_samples"],
+                      "device": str(dev)}
+        t0 = time.perf_counter()
+        for name in EVOLVE_ZOO_DATASETS:     # products once, in the cache
+            build_tnn_problem(name, seed=SEED,
+                              epochs=EVOLVE_BUDGET["tnn_epochs"],
+                              cgp_points=EVOLVE_BUDGET["cgp_points"],
+                              cgp_iters=EVOLVE_BUDGET["cgp_iters"],
+                              pcc_samples=EVOLVE_BUDGET["pcc_samples"],
+                              device=dev, cache_dir=str(cache))
+        products_s = time.perf_counter() - t0
+        entries = make_entries(list(EVOLVE_ZOO_DATASETS), ["base", "lean"],
+                               **zoo_budget)
+        t0 = time.perf_counter()
+        report = build_zoo(entries, tmp / "zoo", workers=EVOLVE_WORKERS,
+                           cache_dir=str(cache))
+        zoo_s = time.perf_counter() - t0
+        zoo_rows = A.load_manifest(tmp / "zoo")
+        zoo_ok = sorted(report["built"]) == sorted(e.name for e in entries)
+        streams = {r["name"]: make_dataset(r["dataset"]).x_test
+                   for r in zoo_rows}
+        offline = {r["name"]: A.load_program(
+            tmp / "zoo" / r["program"], device=dev).predict(
+            streams[r["name"]]) for r in zoo_rows}
+        with ClassifierFleet.from_emit_dir(tmp / "zoo", device=dev,
+                                           megakernel=True) as fleet:
+            CK.reset_launches()
+            submitted = {n: fleet.submit_many(n, x)
+                         for n, x in streams.items()}
+            fleet.flush(timeout=120.0)
+            for name, (reqs, shed, _) in submitted.items():
+                zoo_ok &= not len(shed) and bool(np.array_equal(
+                    [q.result(120.0) for q in reqs], offline[name]))
+            zoo_launches = dict(CK.LAUNCHES)
+            zoo_ok &= fleet.errors == [] and (not on_card or (
+                zoo_launches["fleet_eval_words"] > 0
+                and zoo_launches["fused_eval_uint"] == 0))
+        checks["zoo_serves_offline_labels"] = zoo_ok
+        out["zoo"] = {"entries": len(entries), "budget": zoo_budget,
+                      "products_s": products_s, "build_s": zoo_s,
+                      "entries_per_s": len(entries) / zoo_s,
+                      "workers": EVOLVE_WORKERS, "launches": zoo_launches,
+                      "provenance_device": sorted({
+                          r["provenance"]["device"] for r in zoo_rows})}
+
+        # -- (d) the autopilot: rollback then promotion; a SIGKILL resumed ---
+        p = build_tnn_problem("cardio", seed=SEED,
+                              epochs=EVOLVE_BUDGET["tnn_epochs"],
+                              cgp_points=EVOLVE_BUDGET["cgp_points"],
+                              cgp_iters=EVOLVE_BUDGET["cgp_iters"],
+                              pcc_samples=EVOLVE_BUDGET["pcc_samples"],
+                              device=dev, cache_dir=str(cache))
+        front = fronts.get("resumed") or [{"x": [0] * p.domains.size,
+                                           "f": [1.0, 0.0]}]
+        best = min(front, key=lambda r: r["f"][0])
+        cc = compile_archive_winner(p, np.array(best["x"]))
+        emits = {n: shutil.copytree(tmp / "emit", tmp / f"emit_{n}")
+                 for n in ("inproc", "control", "killed")}
+        candidates = [Candidate(cc=sabotage_classifier(cc),
+                                objectives=best["f"],
+                                provenance={"sabotaged": True}),
+                      Candidate(cc=cc, objectives=best["f"], provenance={})]
+        with ClassifierFleet.from_emit_dir(emits["inproc"],
+                                           device=dev) as fleet:
+            pilot = Autopilot(
+                fleet, ScriptedSource(candidates),
+                dataset_traffic("cardio", seed=SEED),
+                DecisionJournal(emits["inproc"] / "journal.jsonl"),
+                AutopilotConfig(tenant="tnn_cardio", rounds=2,
+                                policy=PromotionPolicy()))
+            t0 = time.perf_counter()
+            outcomes = pilot.run()
+            rounds_s = (time.perf_counter() - t0) / 2
+            checks["autopilot_rollback_then_promote"] = (
+                [o["event"] for o in outcomes] == ["rolled_back", "promoted"]
+                and fleet.errors == [])
+        pilot_cmd = [sys.executable, "-m", "repro_torch.autopilot", "run",
+                     "--tenant", "tnn_cardio", "--dataset", "cardio",
+                     "--rounds", "2", "--sabotage-round", "0",
+                     "--no-require-improvement", *budget, *on]
+        ap_cli = {}
+        for name, emit, extra in (
+                ("control", emits["control"], ()),
+                ("killed", emits["killed"], ("--kill-after", "decision:1")),
+                ("resumed", emits["killed"], ())):
+            r, s = run_cli(pilot_cmd, "--emit-dir", emit,
+                           "--out", emit / f"{name}.json", *extra)
+            ap_cli[name] = {"seconds": s, "returncode": r.returncode,
+                            "stdout": r.stdout.strip().splitlines()[-2:]}
+            if r.returncode not in (0, -signal.SIGKILL):
+                print(r.stderr[-3000:], file=sys.stderr)
+
+        def decided(emit):
+            return [(e["round"], e["event"], e.get("action"))
+                    for e in DecisionJournal(
+                        emit / "autopilot_journal.jsonl").replay()
+                    if e["event"] in ("decision", "promoted",
+                                      "rolled_back", "held")]
+
+        control = decided(emits["control"])
+        checks["autopilot_sigkill_same_decisions"] = (
+            [ap_cli[n]["returncode"] for n in ap_cli]
+            == [0, -signal.SIGKILL, 0]
+            and control == decided(emits["killed"]) and len(control) == 4)
+        out["autopilot"] = {
+            "inprocess": [o["event"] for o in outcomes],
+            "seconds_per_round": rounds_s, "cli": ap_cli,
+            "cli_seconds_per_round": ap_cli["control"]["seconds"] / 2,
+            "decisions": control}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["checks"] = checks
+    say("evolve", **out)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"evolve: failed checks {bad}")
+    return out
 
 
 def cross_device(phase: str, cfg32, p32: dict, prompt: list[int]) -> None:
@@ -2444,6 +2936,10 @@ def main() -> int:
                           ("fused_eval_uint", "fleet_eval_words")}
                       for m, r in fleet_out["modes"].items()}
 
+    # -- 4f. the campaign layer: campaigns, checkpoints, workers, the zoo
+    # and the autopilot, counted; card against CPU -------------------------
+    evo = evolve_phase(dev, smi, camp_prob)
+
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
         quant="ternary_packed"))
@@ -2600,6 +3096,15 @@ def main() -> int:
                      "counts at the end of each phase"},
          "pipeline": {"launches": pipe["launches"]["fused_eval_uint"],
                       "launches_by_variant": pipe["launches_by_variant"]},
+         "evolve": {
+             "launches": evo["campaign"]["launches"]["fused_eval_uint"],
+             "launches_by_variant": evo["campaign"]["launches_by_variant"],
+             "launches_per_epoch": [e["launches"] for e in
+                                    evo["campaign"]["per_epoch"]],
+             "objective": {k: evo["campaign"]["objective_launch"][k]
+                           for k in ("rows", "W", "depth", "kernel_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "ops_bound_ms", "chain_bound_ms")}},
          "fleet": {"launches": {m: v["fused_eval_uint"]
                                 for m, v in fleet_launches.items()},
                    "worker_launches": [
@@ -2643,6 +3148,8 @@ def main() -> int:
                        "fleet_eval_words"],
                    "megakernel_peak_tenants": fleet_out["modes"][
                        "megakernel"]["megakernel_peak_tenants"],
+                   "zoo_launches": evo["zoo"]["launches"][
+                       "fleet_eval_words"],
                    "at_fleet_shape": fleet_out[
                        "fleet_eval_words_at_fleet_shape"]},
          "cases": stats["fleet_eval_words"]["cases"],

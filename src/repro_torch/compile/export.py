@@ -50,7 +50,8 @@ def main(dataset: str = "breast_cancer", out_dir: str = "artifacts",
           f"power={report['total_power_mw']:.3f}mW "
           f"({report['power_source']})")
     print(f"[emit] {paths['verilog']}  {paths['report']}")
-    print(f"[emit] tenant tnn_{dataset} -> {paths['manifest']}")
+    print(f"[emit] tenant tnn_{dataset} -> {paths['manifest']} "
+          f"(serve with: python -m repro_torch.serve --emit-dir {out_dir})")
 
     # independent RTL re-evaluation vs the compiled program on the device
     rng = np.random.default_rng(0)

@@ -384,6 +384,18 @@ def reset_launches() -> None:
                 counts[k] = 0
 
 
+def build_before_spawn(devices) -> None:
+    """Build the gate walk's library if any of `devices` (None: the
+    current CUDA device) is a card, before a caller spawns processes that
+    will launch it there: they then load one library instead of racing
+    nvcc on `build/`."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+
+    if any(resolve_device(d).type == "cuda" for d in devices):
+        _build.build([SOURCE])
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its entry points' C signatures declared."""

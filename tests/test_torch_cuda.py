@@ -821,3 +821,174 @@ def test_mlp_baseline_on_card_as_on_cpu(cuda):
         w = torch.randn(4096, device=cuda) * 0.5
         np.testing.assert_array_equal(B._pow2_ste(w).cpu().numpy(),
                                       B._pow2_ste(w.cpu()).numpy())
+
+
+# ---------------------------------------------------------------------------
+# The campaign layer on the card: checkpoints, campaigns, drift, workers,
+# the zoo and the autopilot, each against the CPU
+# ---------------------------------------------------------------------------
+CAMPAIGN_BUDGET = dict(seed=0, epochs=2, cgp_points=1, cgp_iters=25,
+                       pcc_samples=400)
+
+
+@pytest.fixture(scope="module")
+def phase_entry(tmp_path_factory):
+    """The port's TINY pipeline on the CPU, cached: (root, key); campaigns
+    on either device load these products by key."""
+    from repro_torch.evolve import phase_cache as PCache
+    from repro_torch.evolve.problems import build_tnn_problem
+
+    root = tmp_path_factory.mktemp("phase_cache")
+    build_tnn_problem("breast_cancer", device="cpu", cache_dir=str(root),
+                      **CAMPAIGN_BUDGET)
+    key = PCache.phase_key("breast_cancer", **CAMPAIGN_BUDGET, device="cpu")
+    return str(root), key
+
+
+def _campaign_spec(phase_entry, device):
+    from repro_torch.evolve import ProblemSpec
+
+    root, key = phase_entry
+    return ProblemSpec("tnn", {"dataset": "breast_cancer",
+                               "device": str(device), "cache_dir": root,
+                               "phase_key": key, **CAMPAIGN_BUDGET})
+
+
+def _run_campaign(phase_entry, device, workers=0, ckpt=None, drift=None,
+                  **kw):
+    from repro_torch.evolve import (Campaign, CampaignConfig,
+                                    attach_tnn_drift)
+
+    spec = _campaign_spec(phase_entry, device)
+    p = spec.build()
+    cfg = CampaignConfig(**{**dict(n_islands=3, pop_size=12, n_epochs=4,
+                                   gens_per_epoch=3, seed=7), **kw},
+                         device=str(device), workers=workers)
+    with Campaign(p.domains, p.objective, cfg, checkpoint_dir=ckpt,
+                  seed_population=p.seed_population,
+                  problem_spec=spec) as c:
+        if drift is None:
+            res = c.run()
+            return res.archive_x, res.archive_f, res.histories
+        attach_tnn_drift(p, drift, seed=1)
+        for r in range(3):
+            p.drift(r)
+            c.mark_drift(r)
+            c.step_epoch()
+        return c.archive.X, c.archive.F, [s.history for s in c.states]
+
+
+def _same_run(a, b):
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2] == b[2]
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+
+    state = {"w": torch.randn(8, 4, device=cuda).to(torch.bfloat16),
+             "pop": torch.arange(12, device=cuda).view(3, 4),
+             "F": np.linspace(0, 1, 6).reshape(3, 2)}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, state, background=True)
+    cm.wait()
+    _, got, _ = cm.restore(state)
+    assert got["w"].device == cuda and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], state["w"])
+    assert torch.equal(got["pop"], state["pop"])
+    assert got["F"].dtype == torch.float64
+    np.testing.assert_array_equal(got["F"].cpu().numpy(), state["F"])
+
+
+def test_campaign_on_card_equals_cpu(cuda, phase_entry, tmp_path):
+    """The archive, serially and across two spawned workers on the card,
+    and after a resume on the card from the CPU's checkpoint, equals the
+    CPU's; each objective call is one launch."""
+    cpu = _run_campaign(phase_entry, "cpu")
+    before = CK.LAUNCHES["fused_eval_uint"]
+    _same_run(_run_campaign(phase_entry, cuda), cpu)
+    assert CK.LAUNCHES["fused_eval_uint"] > before
+    _same_run(_run_campaign(phase_entry, cuda, workers=2), cpu)
+    _run_campaign(phase_entry, "cpu", ckpt=str(tmp_path), n_epochs=2)
+    _same_run(_run_campaign(phase_entry, cuda, ckpt=str(tmp_path)), cpu)
+
+
+def test_drift_on_card_equals_cpu(cuda, phase_entry):
+    from repro_torch.evolve import attach_tnn_drift
+
+    card = attach_tnn_drift(_campaign_spec(phase_entry, cuda).build(), 0.25)
+    cpu = attach_tnn_drift(_campaign_spec(phase_entry, "cpu").build(), 0.25)
+    pop = np.random.default_rng(2).integers(
+        0, card.domains[None, :], size=(24, card.domains.size))
+    for r in range(3):
+        card.drift(r)
+        cpu.drift(r)
+        got = card.objective(pop)
+        np.testing.assert_array_equal(got, cpu.objective(pop))
+        np.testing.assert_array_equal(
+            got, np.array([card.approx._eval_one(x) for x in pop]))
+    _same_run(_run_campaign(phase_entry, cuda, drift=0.5),
+              _run_campaign(phase_entry, "cpu", drift=0.5))
+
+
+def test_zoo_on_card_serves_through_the_megakernel(cuda, tmp_path):
+    """Two spawned workers on the card train, search and emit; the zoo
+    serves through the megakernel with labels equal to `predict`."""
+    from repro_torch.compile import artifact as A
+    from repro_torch.compile.zoo import build_zoo, make_entries
+    from repro_torch.serve import ClassifierFleet
+
+    entries = make_entries(["breast_cancer"], ["base", "lean"], islands=2,
+                           pop=8, epochs=1, gens_per_epoch=2, migrate_k=1,
+                           tnn_epochs=2, cgp_points=1, cgp_iters=25,
+                           pcc_samples=400, device=str(cuda))
+    rep = build_zoo(entries, tmp_path / "zoo", workers=2,
+                    cache_dir=str(tmp_path / "cache"))
+    assert len(rep["built"]) == 2
+    rows = A.load_manifest(tmp_path / "zoo")
+    x = np.random.default_rng(0).random((256, rows[0]["n_features"]))
+    with ClassifierFleet.from_emit_dir(tmp_path / "zoo", device=cuda,
+                                       megakernel=True) as fleet:
+        for row in rows:
+            reqs, _, _ = fleet.submit_many(row["name"], x)
+            fleet.flush()
+            want = A.load_program(tmp_path / "zoo" / row["program"],
+                                  device=cuda).predict(x)
+            np.testing.assert_array_equal([r.result(60.0) for r in reqs],
+                                          want)
+        assert fleet._megakernel_launches > 0 and fleet.errors == []
+
+
+def test_autopilot_rounds_on_card(cuda, phase_entry, tmp_path):
+    """A sabotaged candidate rolls back and a good one promotes, with the
+    campaign and the fleet on the card."""
+    from repro_torch.autopilot import (Autopilot, AutopilotConfig,
+                                       CampaignSource, DecisionJournal,
+                                       PromotionPolicy, dataset_traffic)
+    from repro_torch.compile import write_artifacts
+    from repro_torch.evolve import (Campaign, CampaignConfig,
+                                    compile_archive_winner)
+    from repro_torch.serve import ClassifierFleet
+
+    p = _campaign_spec(phase_entry, cuda).build()
+    emit = tmp_path / "fleet"
+    write_artifacts(compile_archive_winner(p, p.seed_population[0]), emit,
+                    base="tnn_breast_cancer", dataset="breast_cancer")
+    cfg = CampaignConfig(n_islands=2, pop_size=8, n_epochs=2,
+                         gens_per_epoch=2, device=str(cuda))
+    campaign = Campaign(p.domains, p.objective, cfg,
+                        checkpoint_dir=str(tmp_path / "ck"),
+                        seed_population=p.seed_population)
+    source = CampaignSource(p, campaign, require_improvement=False)
+    with ClassifierFleet.from_emit_dir(emit, device=cuda) as fleet:
+        pilot = Autopilot(
+            fleet, source, dataset_traffic("breast_cancer"),
+            DecisionJournal(emit / "journal.jsonl"),
+            AutopilotConfig(tenant="tnn_breast_cancer", rounds=2,
+                            mirror_pairs=64, sabotage_rounds=frozenset({0}),
+                            policy=PromotionPolicy(min_pairs=32,
+                                                   min_truth=16)))
+        outcomes = pilot.run()
+        assert [o["event"] for o in outcomes] == ["rolled_back", "promoted"]
+        assert fleet.errors == []

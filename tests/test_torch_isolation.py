@@ -9,9 +9,12 @@
   the bundle writer and the export CLI) training and emitting a cardio
   classifier; nor does the fleet stack (`repro_torch.serve`: a CPU fleet
   over the golden manifest, the MLP baselines, `python -m
-  repro_torch.serve --help`).
-* No source of the port, nor `chip_smoke.py`, imports JAX or `repro`, or
-  calls `torch.compile`.
+  repro_torch.serve --help`); nor does the campaign layer
+  (`repro_torch.checkpoint`, `evolve`, `compile.zoo`, `autopilot`: a
+  checkpointed TNN campaign resumed, a zoo entry built, an autopilot
+  round journaled), which loads neither `msgpack` nor `ml_dtypes`.
+* No source of the port, nor `chip_smoke.py`, imports JAX, `repro`,
+  `msgpack` or `ml_dtypes`, or calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
   instead of running on the CPU.
 """
@@ -42,6 +45,8 @@ FORBIDDEN = [
     (re.compile(r"^\s*from\s+repro(\.|\s)", re.M), "imports from repro"),
     (re.compile(r"^\s*import\s+repro(\.|\s|,|$)", re.M), "imports repro"),
     (re.compile(r"(?<![\w.])torch\.compile\b"), "calls torch.compile"),
+    (re.compile(r"^\s*(import|from)\s+(msgpack|ml_dtypes)(\.|\s|$)", re.M),
+     "imports msgpack or ml_dtypes"),
 ]
 
 
@@ -207,6 +212,101 @@ print(json.dumps({{"ok": ok, "bad": bad}}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"ok": True, "bad": []}
+
+
+def test_campaign_layer_loads_neither_jax_nor_repro(tmp_path):
+    script = f"""
+import json, sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+from repro_torch.autopilot import (Autopilot, AutopilotConfig, Candidate,
+                                   DecisionJournal, PromotionPolicy,
+                                   ScriptedSource)
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.compile import CircuitProgram, write_artifacts
+from repro_torch.compile.zoo import build_zoo, make_entries
+from repro_torch.evolve import (Campaign, CampaignConfig, ProblemSpec,
+                                compile_archive_winner)
+from repro_torch.serve import ClassifierFleet
+root = {str(tmp_path)!r}
+budget = dict(seed=0, epochs=1, cgp_points=1, cgp_iters=5, pcc_samples=200)
+spec = ProblemSpec("tnn", dict(dataset="cardio", device="cpu",
+                               cache_dir=root + "/cache", **budget))
+p = spec.build()
+cfg = CampaignConfig(n_islands=2, pop_size=6, n_epochs=2, gens_per_epoch=1,
+                     device="cpu")
+full = Campaign(p.domains, p.objective, cfg,
+                seed_population=p.seed_population).run()
+import dataclasses
+Campaign(p.domains, p.objective, dataclasses.replace(cfg, n_epochs=1),
+         checkpoint_dir=root + "/ck",
+         seed_population=p.seed_population).run()
+res = Campaign(p.domains, p.objective, cfg, checkpoint_dir=root + "/ck",
+               seed_population=p.seed_population).run()
+ok = res.resumed_from == 0
+cc = compile_archive_winner(p, full.archive_x[0])
+write_artifacts(cc, root + "/fleet", base="tnn_cardio", dataset="cardio")
+rep = build_zoo(make_entries(["cardio"], ["base"], islands=2, pop=6,
+                             epochs=1, gens_per_epoch=1, tnn_epochs=1,
+                             cgp_points=1, cgp_iters=5, pcc_samples=200,
+                             device="cpu"),
+                root + "/zoo", cache_dir=root + "/cache")
+ok &= rep["built"] == ["tnn_cardio__base"]
+fleet = ClassifierFleet.from_emit_dir(root + "/fleet", device="cpu")
+prog = CircuitProgram.from_classifier(cc, device="cpu")
+def traffic():
+    rng = np.random.default_rng(0)
+    while True:
+        x = rng.random((16, cc.n_features))
+        yield x, prog.predict(x)
+pilot = Autopilot(fleet, ScriptedSource([Candidate(cc, [0.0, 1.0], {{}})]),
+                  traffic(), DecisionJournal(root + "/j.jsonl"),
+                  AutopilotConfig(tenant="tnn_cardio", mirror_pairs=32,
+                                  policy=PromotionPolicy(min_pairs=16)))
+ok &= [o["event"] for o in pilot.run()] == ["promoted"]
+fleet.shutdown()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "msgpack", "ml_dtypes")
+             or m.startswith(("jax.", "repro.", "msgpack.", "ml_dtypes.")))
+print(json.dumps({{"ok": bool(ok), "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=180, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
+def test_campaign_entry_points_without_device_need_cuda(monkeypatch,
+                                                        tmp_path):
+    from repro_torch.autopilot import __main__ as autopilot_cli
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.compile.zoo import build_zoo, make_entries
+    from repro_torch.evolve import IslandExecutor, ProblemSpec
+    from repro_torch.evolve import build_tnn_problem
+    from repro_torch.evolve import __main__ as evolve_cli
+    from repro_torch.evolve.config import CampaignConfig
+
+    cm = CheckpointManager(str(tmp_path / "ck"))
+    cm.save(0, {"x": np.zeros(2)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cm.restore({"x": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tnn_problem("cardio", cache_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IslandExecutor(ProblemSpec("tnn", {"dataset": "cardio"}),
+                       CampaignConfig(workers=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_zoo(make_entries(["cardio"], ["base"]), tmp_path / "zoo",
+                  workers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evolve_cli.main(["--dataset", "cardio", "--phase-cache",
+                         str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autopilot_cli.main(["run", "--emit-dir", str(EMIT_DIR),
+                            "--tenant", "cardio", "--dataset", "cardio",
+                            "--phase-cache", str(tmp_path)])
 
 
 def test_entry_points_without_device_need_cuda(monkeypatch):
