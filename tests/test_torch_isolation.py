@@ -12,11 +12,17 @@
   repro_torch.serve --help`); nor does the campaign layer
   (`repro_torch.checkpoint`, `evolve`, `compile.zoo`, `autopilot`: a
   checkpointed TNN campaign resumed, a zoo entry built, an autopilot
-  round journaled), which loads neither `msgpack` nor `ml_dtypes`.
-* No source of the port, nor `chip_smoke.py`, imports JAX, `repro`,
-  `msgpack` or `ml_dtypes`, or calls `torch.compile`.
+  round journaled), which loads neither `msgpack` nor `ml_dtypes`; nor
+  does the port's harness (`python -m benchmarks_torch.run --only fig4
+  --device cpu` at a cut budget), which loads no `benchmarks` module
+  either.
+* No source of the port, nor of its harness (`benchmarks_torch/`) and
+  examples (`examples_torch/`), nor `chip_smoke.py`, imports JAX,
+  `repro`, the reference's `benchmarks`, `msgpack` or `ml_dtypes`, or
+  calls `torch.compile`.
 * An entry point called without `device` on a machine without CUDA raises
-  instead of running on the CPU.
+  instead of running on the CPU; so does `python -m benchmarks_torch.run`
+  without `--device`.
 """
 import json
 import re
@@ -47,7 +53,10 @@ FORBIDDEN = [
     (re.compile(r"(?<![\w.])torch\.compile\b"), "calls torch.compile"),
     (re.compile(r"^\s*(import|from)\s+(msgpack|ml_dtypes)(\.|\s|$)", re.M),
      "imports msgpack or ml_dtypes"),
+    (re.compile(r"^\s*(import|from)\s+benchmarks(\.|\s|,|$)", re.M),
+     "imports the reference's benchmarks"),
 ]
+HARNESS = [ROOT / "benchmarks_torch", ROOT / "examples_torch"]
 
 
 def test_serving_loads_neither_jax_nor_repro():
@@ -95,6 +104,7 @@ print(json.dumps({{"ok": ok, "bad": bad}}))
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted(p for d in HARNESS for p in d.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_stand_alone(path):
@@ -366,3 +376,43 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         serve_cli.main(["replay", "--emit-dir", str(EMIT_DIR),
                         "--replay", "cardio", "--readings", "4"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_harness_loads_neither_jax_nor_repro_nor_benchmarks():
+    script = f"""
+import contextlib, io, json, sys
+sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+import benchmarks_torch.common as common
+real = common.evolve_pc_library
+common.evolve_pc_library = lambda n, n_points, max_iters, seed, **kw: real(
+    n, n_points=1, max_iters=4, seed=seed, **kw)
+from benchmarks_torch import run
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    run.main(["--only", "fig4", "--device", "cpu"])
+lines = buf.getvalue().splitlines()
+ok = lines[0] == "name,us_per_call,derived" and len(lines) > 4
+ok &= all(line.startswith("fig4,") for line in lines[1:])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "benchmarks")
+             or m.startswith(("jax.", "repro.", "benchmarks.")))
+print(json.dumps({{"ok": bool(ok), "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=180, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
+def test_harness_without_device_needs_cuda():
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-m", "benchmarks_torch.run",
+                          "--only", "table2"], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT), env=env)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "table2," not in out.stdout
