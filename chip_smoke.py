@@ -181,17 +181,50 @@ package) and prints one JSON object per phase:
      and all `shared_plane`;
   5. `lm_serving` — llama3.2-1b at full width (16 layers, d_model 2048,
      vocab 128,256) with 2-bit packed ternary projections in bf16, weights
-     from numpy seed 0: 16 requests (8 of 32 and 8 of 96 prompt tokens,
-     32 new tokens each) through `ServingEngine(max_batch=8,
-     cache_len=256)`.  The ternary-matmul counters are zeroed just before
-     and must read 7 projections x 16 layers x forwards just after, every
-     decode launch through the split-K variant and every prefill launch
-     through the tensor-core variant; every request must get its 32 tokens
-     and the logits must be finite;
+     drawn on the card from seed 0 (`serving_params`): 16 requests (8 of
+     32 and 8 of 96 prompt tokens, 32 new tokens each) through
+     `ServingEngine(max_batch=8, cache_len=256)`.  The ternary-matmul
+     counters are zeroed just before and must read 7 projections x 16
+     layers x forwards just after, every decode launch through the
+     split-K variant and every prefill launch through the tensor-core
+     variant; every request must get its 32 tokens and the logits must be
+     finite;
   6. `lm_cross_device` — the same weights in float32, one 16-token prompt
      and 8 greedy steps on the card (kernel) and on the CPU (plain
      versions): logits agree within `LOGIT_TOL`, tokens agree wherever the
      top-2 margin exceeds it;
+  6a. `lm_families` — every row of `repro_torch.launch.families.FAMILIES`
+     at its published width, weights drawn on the card from seed 0 by
+     `serving_params` (packed there under ternary_packed), its depth
+     printed beside the published one (cut only for the card's 80 GB or
+     the run's time): qwen2-1.5b, qwen3-4b (8 layers), qwen2.5-14b (4),
+     mixtral-8x22b (4), arctic-480b (1), hymba-1.5b (dense),
+     whisper-medium (24 + 24), qwen2-vl-72b (2; 288-token prompts over its
+     256 vision positions, `cache_len` 512) and llama3.2-1b with an fp8
+     KV cache.  Each serves 8 requests of 32 prompt tokens, 16 new each,
+     through `ServingEngine(max_batch=8, cache_len=256)` after one warm-up
+     request, with the ternary-matmul counters zeroed just before and read
+     just after: launches must equal `family_launches` by variant (decode
+     split-K, prefill tensor cores; 7 a layer and forward, mixtral 4,
+     hymba 0, whisper 6 an encoder and 10 a decoder layer at prefill, 8 at
+     decode), the (K, N) the kernel got must be the arch's `_lin` shapes
+     (`params.lin_shapes`), every request get its 16 tokens and the logits
+     be finite; printed: params, active params, prefill and decode step
+     ms, tokens/s, `max_memory_allocated`, and every `(M, K, N, x dtype)`
+     the kernel got, the warm-up's included (`SHAPE_LAUNCHES`).
+     `lm_families_moe` — layer 0's `moe_ffn` of mixtral and arctic on the
+     card and the CPU from one bf16 input of 8 x 32 tokens: routing
+     (`tope`, `keep`, the slots) equal, outputs within `MOE_TOL`;
+     `lm_families_fp8` — the fp8 cache bytes a prefill writes on the card
+     equal the CPU's cast of the same K/V; `lm_families_cross_device` —
+     whisper at full depth and hymba at 4 layers in float32, held as
+     `lm_cross_device` is, and llama3.2-1b with its fp8 KV cache in
+     float32 (`fp8_cross_device`): the prefill on each side, then greedy
+     steps with the CPU handed the card's cache bytes each step, logits
+     within `LOGIT_TOL`, tokens equal and cache values within one fp8
+     step; `lm_families_ternary` — the ternary matmul at every shape the
+     served runs gave it: inside the f32 envelope, with kernel, plain
+     version, bound and `library_ms` times;
   6b. `rwkv_serving` — rwkv6-7b at full width and depth (32 layers,
      d_model 4096, 64 heads of 64, vocab 65,536, dense bf16, 7.6 B
      parameters drawn on the card by `init_params` from seed 0): the
@@ -245,7 +278,9 @@ package) and prints one JSON object per phase:
      and an `evolve` field with the campaign's launches, by epoch, and
      its objective launch timed; the ternary matmul's entry at decode
      w_gate, with a `prefill` field at M = 768 and its launches by
-     variant; the popcount's with a `large` field and its design; the WKV
+     variant, and an `lm_families` field (its launches by arch and
+     variant, and each new shape's times and bound); the popcount's with
+     a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
      `model_layout_decode` fields, its design and launches by design), the
      card's name and power limit, and last `{"ok": true, "device": {...}}`.
@@ -294,6 +329,24 @@ PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
 # layers that stays far below 1e-3 on logits of order 1.
 LOGIT_TOL = 1e-3
+# `lm_families`: every row of `repro_torch.launch.families.FAMILIES` (the
+# reference's other archs at full width, depth cut only for the card's
+# 80 GB or the run's time), each served through `ServingEngine`.
+FAMILY_REQUESTS = 8
+FAMILY_NEW = 16
+# Card against CPU in float32: whisper at full depth (24 + 24), hymba at
+# this depth (its Mamba loop is host-heavy on the CPU), llama3.2-1b with
+# its fp8 KV cache at full depth.
+HYMBA_CROSS_DEPTH = 4
+# One MoE layer alone, card against CPU, at the served prefill shape
+# (8 x 32 tokens) in bf16 (arctic's experts in float32 would not fit the
+# host twice): routing exact, outputs within MOE_TOL x max|y| (five bf16
+# ulps of the largest output: each side rounds h and the products to bf16
+# after its own f32 sums).
+MOE_TOL = 2e-2
+# The kernels line's columns for each shape the families gave the kernel.
+FAMILY_SHAPE_FIELDS = ("M", "K", "N", "x", "variant", "ms", "plain_ms",
+                       "bound_ms", "bound_by", "library_ms")
 # The campaign phase's cut of the reference's Phase-1 budget (3 tau points
 # a metric x 500 generations in `build_tnn_problem`): 2 points a metric x
 # CAMPAIGN_ITERS generations; widths, vector sets and the PCC samples are
@@ -653,17 +706,19 @@ def with_dtypes(tree: dict, defs: dict) -> dict:
             else v.to(defs[k].dtype) for k, v in tree.items()}
 
 
-def finite_logits(cfg, params: dict, prompts: list[list[int]]) -> bool:
+def finite_logits(cfg, params: dict, prompts: list[list[int]],
+                  cache_len: int = 256) -> bool:
     """Whether a prefill of `prompts` (one length) and the decode step
     after it give finite logits."""
     import torch
 
     from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_engine import make_batch
 
     dev = params["embed"]["tokens"].device
     with torch.inference_mode():
         hidden, cache = TF.prefill(
-            cfg, params, {"tokens": torch.tensor(prompts, device=dev)}, 256)
+            cfg, params, make_batch(cfg, np.array(prompts), dev), cache_len)
         logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
         finite = bool(torch.isfinite(logits).all())
         logits, _ = TF.decode_step(cfg, params, cache,
@@ -677,10 +732,12 @@ def greedy_logits(cfg, params, prompt, n_new, TF, torch, forced=None):
     serving engine does; returns each step's logits on the host.  With
     `forced`, feed those tokens instead of the argmax (so two devices see
     the same inputs)."""
+    from repro_torch.serve.lm_engine import make_batch
+
     dev = params["embed"]["tokens"].device
-    tokens = torch.tensor([prompt], device=dev)
     with torch.inference_mode():
-        hidden, cache = TF.prefill(cfg, params, {"tokens": tokens}, 256)
+        hidden, cache = TF.prefill(
+            cfg, params, make_batch(cfg, np.array([prompt]), dev), 256)
         logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
         out = [logits[0, 0].cpu()]
         for step in range(n_new - 1):
@@ -789,7 +846,7 @@ def lm_phases(dev, cfg16) -> dict:
 
     cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
     t0 = time.perf_counter()
-    p32 = P.seeded_params(cfg32, seed=SEED, device=dev)
+    p32 = P.serving_params(cfg32, SEED, dev)
     p16 = with_dtypes(p32, P.param_defs(cfg16))
     weights_s = time.perf_counter() - t0
     lm_rng = np.random.default_rng(SEED)
@@ -841,6 +898,417 @@ def lm_phases(dev, cfg16) -> dict:
     cross_device("lm_cross_device", cfg32, p32,
                  lm_rng.integers(1, cfg32.vocab, 16).tolist())
     return {"launches": tm_launches, "by_variant": by_variant}
+
+
+def family_launches(cfg, prefills: int, steps: int) -> dict:
+    """Ternary-matmul launches a served run must count, by variant: per
+    layer and forward the attention's 4 projections plus the MLP's 3
+    (none for the MoE's dense experts, but arctic's residual MLP), none
+    under dense; whisper 6 per encoder layer and 10 per decoder layer at
+    prefill (its cross-attention K/V over the frames among them), 8 per
+    decoder layer at decode.  Decode (batch 8) runs split-K, bf16 prefill
+    the tensor cores."""
+    if cfg.quant != "ternary_packed":
+        pre = dec = 0
+    elif cfg.enc_layers:
+        pre = 6 * cfg.enc_layers + 10 * cfg.n_layers
+        dec = 8 * cfg.n_layers
+    else:
+        mlp = cfg.moe is None or cfg.moe.dense_residual
+        pre = dec = (4 + 3 * mlp) * cfg.n_layers
+    return {"split_k": dec * steps, "tensor_core": pre * prefills,
+            "cuda_core": 0}
+
+
+def serve_family(dev, fam) -> dict:
+    """`FAMILY_REQUESTS` requests of the row's prompt length, seeded,
+    `FAMILY_NEW` new each, through `ServingEngine(max_batch=8)` on the
+    card, weights from `serving_params`; the ternary-matmul counters are
+    zeroed just before the counted run and read just after.  Fails on a
+    short request, non-finite logits, launches other than
+    `family_launches`, or projections given (K, N) other than the `_lin`
+    shapes of the arch.  Returns the printed row with the engine (its
+    weights still on the card) under `engine` and, under `shapes`, the
+    launches by `(M, K, N, x dtype)` of the warm-up request and the
+    counted run together: every shape the kernel got."""
+    import collections
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_ternary_matmul as CT
+    from repro_torch.models import params as P
+    from repro_torch.serve.lm_engine import LMServeStats, Request, \
+        ServingEngine
+
+    cfg, full = fam.config(), get_config(fam.arch)
+    plen, cache_len = fam.prompt_tokens, fam.cache_len
+    t0 = time.perf_counter()
+    params = P.serving_params(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab, plen).tolist()
+               for _ in range(FAMILY_REQUESTS)]
+    engine = ServingEngine(cfg, params, max_batch=8, cache_len=cache_len,
+                           device=dev)
+    del params
+    CT.reset_launches()
+    engine.run([Request(uid=-1, prompt=prompts[0], max_new_tokens=2)])
+    shapes = collections.Counter(CT.SHAPE_LAUNCHES)
+    engine.stats = LMServeStats()                 # warm-up not counted
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=FAMILY_NEW)
+            for i, pr in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CT.reset_launches()
+    engine.run(reqs)
+    launches = CT.LAUNCHES["ternary_matmul"]
+    by_variant = dict(CT.VARIANT_LAUNCHES)
+    shapes.update(CT.SHAPE_LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    lm = engine.stats.summary()
+    want = family_launches(cfg, lm["prefills"], lm["decode_steps"])
+    want_kn = P.lin_shapes(cfg) if cfg.quant == "ternary_packed" else set()
+    got_kn = {(K, N) for _, K, N, _ in shapes}
+    finite = finite_logits(cfg, engine.params, prompts, cache_len)
+    new = sum(len(r.output) for r in reqs)
+    row = {"arch": cfg.name, "quant": cfg.quant,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
+           "n_layers": cfg.n_layers, "published_layers": full.n_layers,
+           "depth_cut": cfg.n_layers < full.n_layers,
+           "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "experts": None if cfg.moe is None else
+           [cfg.moe.n_experts, cfg.moe.top_k],
+           "params": P.param_count(cfg),
+           "active_params": P.active_param_count(cfg),
+           "published_params": P.param_count(full),
+           "weights_s": weights_s, "requests": len(reqs),
+           "prompt_tokens": plen, "cache_len": cache_len,
+           "new_tokens": [len(r.output) for r in reqs],
+           "prefill_ms": 1e3 * lm["prefill_s"] / max(lm["prefills"], 1),
+           "decode_step_p50_ms": lm["decode_step_p50_ms"],
+           "decode_step_p99_ms": lm["decode_step_p99_ms"],
+           "tokens_per_s": new / (lm["prefill_s"] + lm["decode_s"]),
+           "stats": lm, "ternary_matmul_launches": launches,
+           "expected": sum(want.values()), "launches_by_variant": by_variant,
+           "expected_by_variant": want,
+           "shapes_with_warm_up": sorted([M, K, N, str(dt)[6:], n] for
+                                         (M, K, N, dt), n in shapes.items()),
+           "lin_kn": sorted(want_kn), "logits_finite": finite,
+           "max_memory_allocated_bytes": peak_bytes}
+    say("lm_families", **row)
+    if any(len(r.output) != FAMILY_NEW for r in reqs):
+        fail(f"lm_families: {cfg.name}: a request did not get its "
+             f"{FAMILY_NEW} tokens")
+    if not finite:
+        fail(f"lm_families: {cfg.name}: non-finite logits")
+    if by_variant != want:
+        fail(f"lm_families: {cfg.name}: ternary_matmul launches by variant "
+             f"{by_variant}, expected {want}")
+    if got_kn != want_kn:
+        fail(f"lm_families: {cfg.name}: ternary_matmul got (K, N) "
+             f"{sorted(got_kn)}, the arch's projections are "
+             f"{sorted(want_kn)}")
+    return row | {"engine": engine, "shapes": shapes}
+
+
+def moe_layer_check(cfg, lp: dict) -> dict:
+    """Layer 0's `moe_ffn` on the card and on the CPU from one seeded bf16
+    input at the served prefill shape: the experts each token picks, which
+    assignments keep a slot and the slots equal exactly; outputs within
+    `MOE_TOL` of the largest."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import params as P
+
+    dev = lp["router"]["w"].device
+    E, k, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.standard_normal(
+        (FAMILY_REQUESTS, 32, cfg.d_model), dtype=np.float32)) \
+        .to(dev).to(torch.bfloat16)
+    C = MOE.capacity(x.shape[0] * x.shape[1], E, k, cf)
+    out = {}
+    t0 = time.perf_counter()
+    for where, p, xx in (("card", lp, x),
+                         ("cpu", P.tree_map(lambda a: a.cpu(), lp),
+                          x.cpu())):
+        with torch.inference_mode():
+            r = MOE.route(p["router"]["w"], xx.reshape(1, -1, cfg.d_model),
+                          E, k, C)
+            y, aux = MOE.moe_ffn(p, xx, n_experts=E, top_k=k,
+                                 capacity_factor=cf)
+        out[where] = (r, y.float().cpu(), float(aux))
+        del p
+    cpu_s = time.perf_counter() - t0
+    (rc, yc, ac), (rh, yh, ah) = out["card"], out["cpu"]
+    same = {n: bool(torch.equal(getattr(rc, n).cpu(), getattr(rh, n)))
+            for n in ("tope", "keep", "dst")}
+    err = float((yc - yh).abs().max())
+    scale = float(yh.abs().max())
+    row = {"arch": cfg.name, "tokens": x.shape[0] * x.shape[1],
+           "experts": E, "top_k": k, "capacity": C,
+           "dropped": int((~rh.keep).sum()), "equal": same,
+           "max_abs_err": err, "max_abs_y": scale, "tol": MOE_TOL * scale,
+           "aux_card": ac, "aux_cpu": ah, "seconds": cpu_s}
+    say("lm_families_moe", **row)
+    if not all(same.values()):
+        fail(f"lm_families_moe: {cfg.name}: routing differs card vs CPU "
+             f"{same}")
+    if not err <= MOE_TOL * scale:
+        fail(f"lm_families_moe: {cfg.name}: outputs differ by {err:.3g} > "
+             f"{MOE_TOL} x {scale:.3g}")
+    return row
+
+
+def fp8_cache_check(cfg, params: dict, prompts: list[list[int]]) -> dict:
+    """The fp8 KV cache a prefill writes on the card, as bytes, against the
+    CPU's cast of the same prefill's compute-dtype K/V: bit for bit."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_engine import make_batch
+
+    dev = params["embed"]["tokens"].device
+    batch = make_batch(cfg, np.array(prompts), dev)
+    with torch.inference_mode():
+        _, c8 = TF.prefill(cfg, params, batch, 256)
+        _, cc = TF.prefill(cfg.replace(kv_cache_dtype="compute"), params,
+                           batch, 256)
+    row = {"arch": cfg.name, "cache_bytes": 0, "mismatched_bytes": 0}
+    for name in ("k", "v"):
+        card = c8[name].view(torch.uint8).cpu()
+        host = cc[name].cpu().to(torch.float8_e4m3fn).view(torch.uint8)
+        row["cache_bytes"] += card.numel()
+        row["mismatched_bytes"] += int((card != host).sum())
+    say("lm_families_fp8", **row, dtype=str(c8["k"].dtype))
+    if c8["k"].dtype != torch.float8_e4m3fn or row["mismatched_bytes"]:
+        fail(f"lm_families_fp8: {row['mismatched_bytes']} of "
+             f"{row['cache_bytes']} cache bytes differ from the CPU's cast")
+    return row
+
+
+def fp8_steps_apart(a, b):
+    """How many fp8 e4m3 values apart two caches are, element by element
+    (uint8 views): the magnitude bits order the values of one sign, so
+    a signed ordinal of the code makes adjacent values 1 apart (+0 and -0
+    both 0)."""
+    import torch
+
+    def ordinal(u):
+        u = u.to(torch.int16)
+        return torch.where(u >= 0x80, -(u & 0x7F), u & 0x7F)
+
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def fp8_cross_device(cfg32, p32: dict, prompt: list[int],
+                     steps: int = 8) -> dict:
+    """A float32 model with an fp8 KV cache on the card (kernels) and on
+    the CPU (plain versions), both from `p32`.  The prefill runs on each
+    side: logits within `LOGIT_TOL`, and each cache element within one fp8
+    step of the CPU's (the two cast float32 K/V that agree to ~1e-6, so a
+    value at a rounding midpoint may land on either neighbour).  Then
+    `steps - 1` greedy decode steps, the CPU handed the card's cache and
+    token before each one, so both read the same fp8 bytes: logits within
+    `LOGIT_TOL`, the card's tokens equal the CPU's wherever the top-2
+    margin exceeds it, and the row each step writes within one fp8 step.
+    (Left to run free, one rounding flip per ~10^5 elements would feed
+    each side different bytes from then on.)"""
+    import torch
+
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_engine import make_batch
+
+    dev = p32["embed"]["tokens"].device
+    p_cpu = P.tree_map(lambda a: a.cpu(), p32)
+    toks = np.array([prompt])
+    diffs, margins, card_tokens, cpu_tokens = [], [], [], []
+    cache = {"bytes": 0, "differing": 0, "max_steps_apart": 0}
+
+    def compare(lc, lh, cc, ch, pos: slice) -> None:
+        diffs.append(float((lc - lh).abs().max()))
+        top2 = lh.topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+        card_tokens.append(int(lc.argmax()))
+        cpu_tokens.append(int(lh.argmax()))
+        for n in ("k", "v"):
+            a = cc[n][:, :, pos].cpu().view(torch.uint8)
+            b = ch[n][:, :, pos].view(torch.uint8)
+            cache["bytes"] += a.numel()
+            cache["differing"] += int((a != b).sum())
+            cache["max_steps_apart"] = max(cache["max_steps_apart"],
+                                           int(fp8_steps_apart(a, b).max()))
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        hc, cc = TF.prefill(cfg32, p32, make_batch(cfg32, toks, dev), 256)
+        hh, ch = TF.prefill(cfg32, p_cpu, make_batch(cfg32, toks, "cpu"),
+                            256)
+        lc = TF.logits_from_hidden(cfg32, p32, hc[:, -1:])[0, 0].cpu()
+        lh = TF.logits_from_hidden(cfg32, p_cpu, hh[:, -1:])[0, 0]
+        compare(lc, lh, cc, ch, slice(0, len(prompt)))
+        for step in range(steps - 1):
+            pos = len(prompt) + step
+            tok = torch.tensor([[card_tokens[-1]]])
+            ch = {n: t.cpu() for n, t in cc.items()}
+            lc, cc = TF.decode_step(cfg32, p32, cc, tok.to(dev), pos)
+            lh, ch = TF.decode_step(cfg32, p_cpu, ch, tok, pos)
+            compare(lc[0, 0].cpu(), lh[0, 0], cc, ch, slice(pos, pos + 1))
+    row = {"arch": cfg32.name, "n_layers": cfg32.n_layers,
+           "d_model": cfg32.d_model, "kv_cache_dtype": cfg32.kv_cache_dtype,
+           "cache_dtype": str(cc["k"].dtype), "prompt_tokens": len(prompt),
+           "steps": steps, "logit_tol": LOGIT_TOL,
+           "max_abs_diff_per_step": diffs, "top2_margin": margins,
+           "card_tokens": card_tokens, "cpu_tokens": cpu_tokens,
+           "cache_written": cache, "seconds": time.perf_counter() - t0}
+    say("lm_families_cross_device", **row)
+    if cc["k"].dtype != torch.float8_e4m3fn:
+        fail(f"lm_families_cross_device: {cfg32.name}: cache is "
+             f"{cc['k'].dtype}, not fp8")
+    if max(diffs) > LOGIT_TOL:
+        fail(f"lm_families_cross_device: {cfg32.name} (fp8 KV): logits "
+             f"differ by {max(diffs):.3g} > {LOGIT_TOL}")
+    for step, (a, b, m) in enumerate(zip(card_tokens, cpu_tokens, margins)):
+        if m > LOGIT_TOL and a != b:
+            fail(f"lm_families_cross_device: {cfg32.name} (fp8 KV): step "
+                 f"{step} token {a} on the card, {b} on the CPU")
+    if cache["max_steps_apart"] > 1:
+        fail(f"lm_families_cross_device: {cfg32.name}: fp8 cache values "
+             f"{cache['max_steps_apart']} steps apart card vs CPU")
+    return row
+
+
+def ternary_families(dev, served: dict) -> tuple[list[dict], float]:
+    """The ternary matmul at every `(M, K, N, x dtype)` it was given while
+    the families were served (`served`: each arch's launches by shape,
+    the warm-up included): every element inside the f32 envelope
+    eps * sqrt(K) * (|x| @ |w|) * |scale| + 1e-6 around the float64
+    product; then kernel, plain version, `library_ms` (one torch.matmul on
+    the weights unpacked to x's dtype beforehand) and bound.  Returns the
+    rows and the largest kernel-vs-plain difference."""
+    import torch
+
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import cuda_ternary_matmul as CT
+    from repro_torch.kernels import ternary_matmul as TM
+    from repro_torch.roofline.kernel_model import ternary_bound_ms
+
+    eps32 = float(np.finfo(np.float32).eps)
+    cases: dict = {}
+    for arch, shapes in served.items():
+        for shape, n in shapes.items():
+            cases.setdefault(shape, {})[arch] = n
+    rows, max_err = [], 0.0
+    for (M, K, N, dt), archs in sorted(
+            cases.items(), key=lambda c: (c[0][1], c[0][2], c[0][0],
+                                          str(c[0][3]))):
+        g = torch.Generator(device=dev).manual_seed(SEED + M + K + N)
+        x = torch.randn(M, K, device=dev, generator=g).to(dt)
+        w2 = torch.randint(-128, 128, (K // 4, N), device=dev, generator=g,
+                           dtype=torch.int8)
+        sc = torch.rand(1, N, device=dev, generator=g) + 0.5
+        got = TM.ternary_matmul(x, w2, sc)
+        plain = TM.ternary_matmul_plain(x, w2, sc)
+        w64 = unpack_ternary(w2, torch.float64)
+        x64, s64 = x.double(), sc.double()
+        bound = eps32 * K ** 0.5 * ((x64.abs() @ w64.abs()) * s64) + 1e-6
+        ratio = float(((got.double() - (x64 @ w64) * s64).abs()
+                       / bound).max())
+        err = float((got - plain).abs().max())
+        del w64, x64, bound
+        max_err = max(max_err, err)
+        p = CT.plan(M, K, N, dt)
+        w_dense = unpack_ternary(w2, dt)
+        row = {"archs": archs, "M": M, "K": K, "N": N, "x": str(dt)[6:],
+               "variant": p.variant, "splits": p.splits,
+               "tile": list(p.tile), "err_over_envelope": ratio,
+               "max_abs_err": err,
+               "ms": gpu_ms(lambda: TM.ternary_matmul(x, w2, sc),
+                            TIMED_REPS, True),
+               "plain_ms": gpu_ms(lambda: TM.ternary_matmul_plain(x, w2, sc),
+                                  PLAIN_REPS, True),
+               "library_ms": gpu_ms(lambda: torch.matmul(x, w_dense) * sc,
+                                    TIMED_REPS, True)}
+        row["bound_ms"], row["bound_by"] = ternary_bound_ms(
+            M, K, N, x.element_size())
+        del w_dense
+        rows.append(row)
+        say("lm_families_ternary", **row)
+        if ratio > 1:
+            fail(f"lm_families_ternary: (M={M}, K={K}, N={N}, {dt}) outside "
+                 f"the f32 envelope by {ratio:.3g}x")
+    return rows, max_err
+
+
+def lm_families_phase(dev) -> dict:
+    """`lm_families`: every row of `launch.families.FAMILIES` served at
+    full width on the card (launches counted per arch, every shape the
+    ternary matmul got recorded), with layer 0's MoE against the CPU for
+    mixtral and arctic and the fp8 cache bytes against the CPU's cast for
+    llama; whisper at full depth, hymba at `HYMBA_CROSS_DEPTH` layers and
+    llama with its fp8 KV cache card against CPU in float32; then the
+    ternary matmul at every shape served.  Returns the rows, the launches
+    by arch and the matmul's rows."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.families import FAMILIES
+    from repro_torch.models import params as P
+
+    t_phase = time.perf_counter()
+    rows, moe, fp8, served = {}, {}, {}, {}
+    for fam in FAMILIES:
+        row = serve_family(dev, fam)
+        engine, served[fam.arch] = row.pop("engine"), row.pop("shapes")
+        cfg = engine.cfg
+        if cfg.moe is not None:
+            moe[fam.arch] = moe_layer_check(cfg, {
+                n: {k: v[0] for k, v in leaf.items()}
+                for n, leaf in engine.params["layers"]["moe"].items()})
+        if cfg.kv_cache_dtype != "compute":
+            fp8[fam.arch] = fp8_cache_check(cfg, engine.params, [
+                np.random.default_rng(SEED + 1).integers(
+                    1, cfg.vocab, fam.prompt_tokens).tolist()
+                for _ in range(FAMILY_REQUESTS)])
+        rows[fam.arch] = row
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 2)
+    f32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+    cross = {"whisper-medium": None, "hymba-1.5b": HYMBA_CROSS_DEPTH,
+             "llama3.2-1b": None}
+    for fam in FAMILIES:
+        if fam.arch not in cross:
+            continue
+        cfg32 = fam.config(**f32)
+        if cross[fam.arch]:
+            cfg32 = cfg32.replace(n_layers=cross[fam.arch])
+        p32 = P.serving_params(cfg32, SEED, dev)
+        prompt = rng.integers(1, cfg32.vocab, 16).tolist()
+        if cfg32.kv_cache_dtype == "compute":
+            cross_device("lm_families_cross_device", cfg32, p32, prompt)
+        else:
+            fp8[fam.arch + "_cross_device"] = fp8_cross_device(
+                cfg32, p32, prompt)
+        del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+    tm_rows, tm_err = ternary_families(dev, served)
+    say("lm_families_done", seconds=time.perf_counter() - t_phase,
+        archs=list(rows))
+    return {"rows": rows, "moe": moe, "fp8": fp8, "ternary": tm_rows,
+            "ternary_max_abs_err": tm_err,
+            "launches": {a: r["ternary_matmul_launches"]
+                         for a, r in rows.items()},
+            "by_variant": {a: r["launches_by_variant"]
+                           for a, r in rows.items()}}
 
 
 def golden_classifier(name: str):
@@ -3095,6 +3563,8 @@ def main() -> int:
     # -- 5, 6. LM serving at full width, counted; card against CPU -------
     tm_launches = lm_phases(dev, get_config("llama3.2-1b").replace(
         quant="ternary_packed"))
+    # -- 5b. the reference's other LM families at full width, counted ------
+    families = lm_families_phase(dev)
     rwkv = rwkv_phases(dev, get_config("rwkv6-7b"))
 
     # -- 7. timing ----------------------------------------------------------
@@ -3315,7 +3785,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
          "launches": tm_launches["launches"],
          "launches_by_variant": tm_launches["by_variant"],
-         "max_abs_err": max(s["max_abs_err"] for s in tstats.values()),
+         "max_abs_err": max(max(s["max_abs_err"] for s in tstats.values()),
+                            families["ternary_max_abs_err"]),
          "ms": tm_main["ms"], "plain_ms": tm_main["plain_ms"],
          "bound_ms": tm_main["bound_ms"], "bound_by": tm_main["bound_by"],
          "library_ms": tm_main["library_ms"],
@@ -3325,7 +3796,13 @@ def main() -> int:
          "prefill": {k: tm_prefill[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "variant", "splits", "tile")}
-         | {"shape": "prefill w_gate: M 768, K 2048, N 8192, bf16"}},
+         | {"shape": "prefill w_gate: M 768, K 2048, N 8192, bf16"},
+         "lm_families": {
+             "launches": families["launches"],
+             "launches_by_variant": families["by_variant"],
+             "shapes": [[r[k] for k in FAMILY_SHAPE_FIELDS]
+                        for r in families["ternary"]],
+             "shape_fields": list(FAMILY_SHAPE_FIELDS)}},
         {"name": "packed_popcount", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_popcount.cu",
          "replaces": "src/repro/kernels/packed_popcount.py:16",

@@ -1,24 +1,35 @@
 """Architecture registry of the port.
 
-`get_config(name)` resolves an arch id to its `ModelConfig`.  The port knows
-the archs whose model path it runs (`ARCHS`); the reference's other ids raise
-`KeyError` until their slice lands (see ROADMAP.md).
+`get_config(name)` resolves an arch id to its `ModelConfig`, the port's own
+copy of the reference's config file; `ARCHS` lists the ten ids in the
+reference's order.  An unknown id raises `KeyError`.
 """
 from __future__ import annotations
+
+import importlib
 
 from repro_torch.configs.base import ModelConfig, MoESpec, SSMSpec
 
 __all__ = ["ARCHS", "ModelConfig", "MoESpec", "SSMSpec", "get_config"]
 
-ARCHS: tuple[str, ...] = ("llama3.2-1b", "rwkv6-7b")
+ARCHS: tuple[str, ...] = (
+    "qwen2-vl-72b",
+    "hymba-1.5b",
+    "whisper-medium",
+    "arctic-480b",
+    "mixtral-8x22b",
+    "llama3.2-1b",
+    "qwen2-1.5b",
+    "qwen3-4b",
+    "qwen2.5-14b",
+    "rwkv6-7b",
+)
+
+_MODULES = {name: "repro_torch.configs." + name.replace("-", "_")
+            .replace(".", "_") for name in ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name == "llama3.2-1b":
-        from repro_torch.configs.llama3_2_1b import CONFIG
-        return CONFIG
-    if name == "rwkv6-7b":
-        from repro_torch.configs.rwkv6_7b import CONFIG
-        return CONFIG
-    raise KeyError(f"arch {name!r} is not ported yet (the port runs "
-                   f"{list(ARCHS)}); ROADMAP.md lists the slices to come")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[name]).CONFIG

@@ -21,11 +21,14 @@ counters are allocated once per device and grown when a larger plan needs
 more, so a decode step adds no torch op and no launch; the kernel leaves
 the counters at 0, and they assume one stream.  What bounds each design
 and what it does about it is set out at the top of the CUDA source.  Each
-launch adds one to `LAUNCHES["ternary_matmul"]` and one to its variant's
-count in `VARIANT_LAUNCHES`.
+launch adds one to `LAUNCHES["ternary_matmul"]`, one to its variant's
+count in `VARIANT_LAUNCHES` and one to its `(M, K, N, x dtype)` in
+`SHAPE_LAUNCHES`, so a caller can hold the kernel against its plain
+version at exactly the shapes a served run gave it.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -36,6 +39,7 @@ SOURCE = "ternary_matmul.cu"
 LAUNCHES = {"ternary_matmul": 0}
 VARIANTS = ("split_k", "tensor_core", "cuda_core")
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 SMS = 132                    # streaming multiprocessors of an H100 SXM
 TARGET_BLOCKS = 2 * SMS      # split-K blocks resident at once (2 a SM)
@@ -146,6 +150,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, VARIANT_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 @functools.cache
@@ -225,4 +230,5 @@ def launch(x: torch.Tensor, w2: torch.Tensor,
                            f"CUDA error {err}")
     LAUNCHES["ternary_matmul"] += 1
     VARIANT_LAUNCHES[p.variant] += 1
+    SHAPE_LAUNCHES[M, K, N, x.dtype] += 1
     return out

@@ -12,7 +12,7 @@ quantization modes of the config:
                        `kernels.ops.ternary_matmul`, which on the card is
                        the hand-written kernel.
 
-`mrope_cos_sin` comes with the VLM family.
+`mrope_cos_sin` is Qwen2-VL's multimodal RoPE.
 """
 from __future__ import annotations
 
@@ -79,6 +79,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dtype)
+
+
+def mrope_cos_sin(positions: torch.Tensor, d_head: int, theta: float,
+                  sections: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (Qwen2-VL): positions (B, 3, S) carry the (t, h, w)
+    ids.  The dh//2 frequencies are split into `sections` (summing to
+    dh//2); each section takes its angle from its own position stream.
+    Returns cos/sin (B, S, dh//2) f32."""
+    if sum(sections) != d_head // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"d_head // 2 = {d_head // 2}")
+    freqs = torch.from_numpy(_rope_freqs(d_head, theta)).to(positions.device)
+    ang_all = positions.float()[..., None] * freqs        # (B, 3, S, dh//2)
+    parts, start = [], 0
+    for si, sec in enumerate(sections):
+        parts.append(ang_all[:, si, :, start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                        # (B, S, dh//2)
+    return torch.cos(ang), torch.sin(ang)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

@@ -1,15 +1,29 @@
-"""Parameter trees of the dense and RWKV-6 families: definitions, init,
-and carriers.
+"""Parameter trees of every reference arch: definitions, init and carriers.
 
 The port of `repro.models.params` for a single device: the same tree,
 shapes and dtypes as the reference (layer-stacked leaves keep their leading
-L axis), no partition specs.
+L axis), no partition specs.  The families: dense (llama, the Qwen archs),
+MoE (router and experts beside attention; arctic adds a dense residual
+FFN), hybrid (attention and Mamba in parallel), encoder-decoder (whisper's
+encoder stack, learned positions and cross-attention), VLM (dense, with
+M-RoPE) and RWKV-6.
+
+The projections `_lin` defines carry `ParamDef.lin`: those, and only
+those, follow `cfg.quant` (2-bit codes and a scale under
+`ternary_packed`).  The MoE router and experts and the Mamba leaves other
+than `in_proj` / `out_proj` are plain leaves in every mode, as in the
+reference.
 
   * `init_params` — the reference's initializers from a `torch.Generator`
     (packed projections get all-zero codes, as the reference's do);
-  * `seeded_params` — serving weights from a numpy seed: each layer's dense
-    projection drawn `normal(0, 1/sqrt(K))` and, for `ternary_packed`,
-    quantized per layer with `ternary_quantize_lm` and packed;
+  * `quantize_params` — a dense tree's `_lin` leaves quantized per layer
+    with `ternary_quantize_lm` and packed, on their device;
+  * `serving_params` — serving weights: `init_params` of the dense tree on
+    the device, then `quantize_params`, so packed codes are the quantized
+    draw, not the all-zero init (the one way the port's entry points,
+    tools and tests build weights to serve);
+  * `lin_shapes` — the `(K, N)` of every `_lin` projection, the shapes the
+    ternary matmul is given under `ternary_packed`;
   * `params_from_reference` — carries a reference tree, given as numpy
     arrays, onto a device leaf by leaf.
 """
@@ -33,6 +47,7 @@ class ParamDef:
     dtype: torch.dtype
     init: str = "normal"       # normal | zeros | ones
     init_scale: float | None = None
+    lin: bool = False          # a `_lin` projection: follows cfg.quant
 
 
 def is_rwkv(cfg: ModelConfig) -> bool:
@@ -40,26 +55,22 @@ def is_rwkv(cfg: ModelConfig) -> bool:
         and cfg.ssm.kind == "rwkv6"
 
 
+def is_hybrid(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid"
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for a family the port does not run
-    (it runs plain dense and ssm/rwkv6), and `ValueError` for RWKV-6 with
-    a quantized `quant`: the reference's RWKV block reads dense `w` leaves
+    """Raise `ValueError` for RWKV-6 or the hybrid with a quantized
+    `quant`: the reference's RWKV and Mamba blocks read dense `w` leaves
     whatever `cfg.quant` says, so "ternary" would silently serve dense
-    products and "ternary_packed" builds leaves it cannot read."""
-    if is_rwkv(cfg):
-        if cfg.quant != "dense":
-            raise ValueError(
-                f"{cfg.name}: the RWKV-6 block is dense only (the "
-                f"reference ignores quant={cfg.quant!r}); use quant='dense'")
-        return
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None \
-            or cfg.enc_layers or cfg.frontend is not None \
-            or cfg.rope not in ("std", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
-            f"ssm={cfg.ssm is not None}, enc_layers={cfg.enc_layers}) is not "
-            "ported yet; the port runs the dense and RWKV-6 families — see "
-            "ROADMAP.md")
+    products and "ternary_packed" builds leaves they cannot read (the
+    reference raises `KeyError` there).  Every other family runs in every
+    mode."""
+    if (is_rwkv(cfg) or is_hybrid(cfg)) and cfg.quant != "dense":
+        block = "RWKV-6" if is_rwkv(cfg) else "Mamba"
+        raise ValueError(
+            f"{cfg.name}: the {block} block is dense only (the reference "
+            f"ignores quant={cfg.quant!r}); use quant='dense'")
 
 
 def _lin(cfg: ModelConfig, K: int, N: int, L: int, bias: bool = False
@@ -72,7 +83,8 @@ def _lin(cfg: ModelConfig, K: int, N: int, L: int, bias: bool = False
         d["w2"] = ParamDef((L, K // 4, N), torch.int8, "zeros")
         d["scale"] = ParamDef((L, 1, N), torch.float32, "ones")
     else:
-        d["w"] = ParamDef((L, K, N), dt, "normal", 1.0 / np.sqrt(K))
+        d["w"] = ParamDef((L, K, N), dt, "normal", 1.0 / np.sqrt(K),
+                          lin=True)
     if bias:
         d["b"] = ParamDef((L, N), dt, "zeros")
     return d
@@ -118,8 +130,69 @@ def _rwkv_defs(cfg: ModelConfig, L: int) -> dict:
     return {"tm": tm, "cm": cm}
 
 
+def _attn_defs(cfg: ModelConfig, L: int) -> dict:
+    D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = DTYPES[cfg.param_dtype]
+    d = {
+        "wq": _lin(cfg, D, H * dh, L, cfg.qkv_bias),
+        "wk": _lin(cfg, D, K * dh, L, cfg.qkv_bias),
+        "wv": _lin(cfg, D, K * dh, L, cfg.qkv_bias),
+        "wo": _lin(cfg, H * dh, D, L),
+    }
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef((L, dh), dt, "ones")
+        d["k_norm"] = ParamDef((L, dh), dt, "ones")
+    return d
+
+
+def _mlp_defs(cfg: ModelConfig, L: int, d_ff: int) -> dict:
+    D = cfg.d_model
+    if cfg.act == "swiglu":
+        return {"w_gate": _lin(cfg, D, d_ff, L),
+                "w_up": _lin(cfg, D, d_ff, L),
+                "w_down": _lin(cfg, d_ff, D, L)}
+    return {"w_in": _lin(cfg, D, d_ff, L, True),      # gelu MLP (whisper)
+            "w_out": _lin(cfg, d_ff, D, L, True)}
+
+
+def _moe_defs(cfg: ModelConfig, L: int) -> dict:
+    """Router (L, D, E) in float32 and the experts stacked over E in the
+    param dtype; plain leaves, dense under every quant (the reference's
+    `moe_ffn` multiplies them raw)."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "router": {"w": ParamDef((L, D, E), torch.float32, "normal", 0.02)},
+        "experts": {
+            "w_gate": ParamDef((L, E, D, F), dt, "normal", 1.0 / np.sqrt(D)),
+            "w_up": ParamDef((L, E, D, F), dt, "normal", 1.0 / np.sqrt(D)),
+            "w_down": ParamDef((L, E, F, D), dt, "normal", 1.0 / np.sqrt(F)),
+        },
+    }
+
+
+def _mamba_defs(cfg: ModelConfig, L: int) -> dict:
+    D = cfg.d_model
+    di = cfg.ssm.expand * D
+    N = cfg.ssm.state_size
+    W = cfg.ssm.conv_width
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "in_proj": _lin(cfg, D, 2 * di, L),
+        "conv_w": ParamDef((L, W, di), dt, "normal", 0.2),
+        "conv_b": ParamDef((L, di), dt, "zeros"),
+        "w_dt": ParamDef((L, di, di), dt, "normal", 1.0 / np.sqrt(di)),
+        "dt_bias": ParamDef((L, di), dt, "zeros"),
+        "w_B": ParamDef((L, di, N), dt, "normal", 1.0 / np.sqrt(di)),
+        "w_C": ParamDef((L, di, N), dt, "normal", 1.0 / np.sqrt(di)),
+        "A_log": ParamDef((L, di, N), torch.float32, "zeros"),
+        "d_skip": ParamDef((L, di), torch.float32, "ones"),
+        "out_proj": _lin(cfg, di, D, L),
+    }
+
+
 def param_defs(cfg: ModelConfig) -> dict:
-    """Full parameter tree of `ParamDef` for a dense or RWKV-6 config."""
+    """Full parameter tree of `ParamDef` for one architecture."""
     check_ported(cfg)
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
     dt = DTYPES[cfg.param_dtype]
@@ -134,24 +207,29 @@ def param_defs(cfg: ModelConfig) -> dict:
     if is_rwkv(cfg):
         tree["layers"] = {**layer, **_rwkv_defs(cfg, L)}
         return tree
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = {
-        "wq": _lin(cfg, D, H * dh, L, cfg.qkv_bias),
-        "wk": _lin(cfg, D, K * dh, L, cfg.qkv_bias),
-        "wv": _lin(cfg, D, K * dh, L, cfg.qkv_bias),
-        "wo": _lin(cfg, H * dh, D, L),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = ParamDef((L, dh), dt, "ones")
-        attn["k_norm"] = ParamDef((L, dh), dt, "ones")
-    if cfg.act == "swiglu":
-        mlp = {"w_gate": _lin(cfg, D, cfg.d_ff, L),
-               "w_up": _lin(cfg, D, cfg.d_ff, L),
-               "w_down": _lin(cfg, cfg.d_ff, D, L)}
+    layer["attn"] = _attn_defs(cfg, L)
+    if is_hybrid(cfg):
+        layer["mamba"] = _mamba_defs(cfg, L)
+        layer["attn_out_norm"] = _norm_def(cfg, L)
+        layer["mamba_out_norm"] = _norm_def(cfg, L)
+    if cfg.moe is not None:
+        layer["moe"] = _moe_defs(cfg, L)
+        if cfg.moe.dense_residual:
+            layer["mlp"] = _mlp_defs(cfg, L, cfg.moe.d_ff_dense or cfg.d_ff)
     else:
-        mlp = {"w_in": _lin(cfg, D, cfg.d_ff, L, True),
-               "w_out": _lin(cfg, cfg.d_ff, D, L, True)}
-    tree["layers"] = {**layer, "attn": attn, "mlp": mlp}
+        layer["mlp"] = _mlp_defs(cfg, L, cfg.d_ff)
+    tree["layers"] = layer
+    if cfg.enc_layers:    # whisper's encoder stack and positional tables
+        Le = cfg.enc_layers
+        tree["enc_layers"] = {"ln1": _norm_def(cfg, Le),
+                              "ln2": _norm_def(cfg, Le),
+                              "attn": _attn_defs(cfg, Le),
+                              "mlp": _mlp_defs(cfg, Le, cfg.d_ff)}
+        tree["enc_pos"] = ParamDef((cfg.enc_seq, D), dt, "normal", 0.02)
+        tree["dec_pos"] = ParamDef((32768, D), dt, "normal", 0.02)
+        tree["enc_final_norm"] = _norm_def(cfg, None)
+        layer["xattn"] = _attn_defs(cfg, L)          # cross-attention
+        layer["ln_x"] = _norm_def(cfg, L)
     return tree
 
 
@@ -173,6 +251,16 @@ def tree_map(fn, tree: dict) -> dict:
 
 def param_count(cfg: ModelConfig) -> int:
     return sum(int(np.prod(d.shape)) for _, d in leaves(param_defs(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token uses: an MoE's experts count top_k of E."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    experts = sum(int(np.prod(d.shape)) for _, d in
+                  leaves(param_defs(cfg)["layers"]["moe"]["experts"]))
+    return int(total - experts * (1.0 - cfg.moe.top_k / cfg.moe.n_experts))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -218,48 +306,56 @@ def params_from_reference(tree: dict, device=None) -> dict:
     return tree_map(lambda a: _to_tensor(a, dev), tree)
 
 
-def seeded_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Serving weights drawn from `numpy.random.default_rng(seed)`.
+def _packed(layers) -> dict:
+    """A projection's `(K, N)` layers (an `(L, K, N)` stack or any
+    iterable of them) quantized one by one (an alpha per layer and
+    column) and packed: `{"w2", "scale"}`."""
+    codes, scales = [], []
+    for w in layers:
+        c, alpha = ternary_quantize_lm(w.float())
+        codes.append(pack_ternary(c))
+        scales.append(alpha.float())
+    return {"w2": torch.stack(codes), "scale": torch.stack(scales)}
 
-    Every normal leaf is drawn in float32 in the reference's flatten order
-    (embedding `normal(0, 0.02)`, projections `normal(0, 1/sqrt(K))` one
-    layer at a time); norms are ones and biases zeros.  For
-    `quant="ternary_packed"` each layer's projection goes through
-    `ternary_quantize_lm` and `pack_ternary` on `device`, so the codes are
-    the quantized weights, not the reference's all-zero init.  Leaves are
-    cast to the config's dtypes.
+
+def quantize_params(cfg: ModelConfig, dense: dict) -> dict:
+    """The serving tree of `cfg` from `dense`, a tree of the same arch
+    under `quant="dense"`: for `ternary_packed` each `_lin` projection is
+    quantized per layer and packed on its own device (its bias kept);
+    every other leaf is passed through.  Any other quant returns `dense`.
     """
+    if cfg.quant != "ternary_packed":
+        return dense
+    defs = param_defs(cfg.replace(quant="dense"))
+
+    def walk(node: dict, dnode: dict) -> dict:
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, dnode[k])
+            elif k == "w" and dnode[k].lin:
+                out.update(_packed(v))
+            else:
+                out[k] = v
+        return out
+
+    return walk(dense, defs)
+
+
+def serving_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Serving weights of `cfg` on `device` (None: the current CUDA
+    device): the dense tree drawn there by `init_params` from `seed` (a
+    host draw of an MoE's billions of normals would take minutes), then
+    `quantize_params`, which for `ternary_packed` quantizes and packs each
+    `_lin` projection there and leaves every other leaf (the MoE router
+    and experts, Mamba's conv and state leaves) as drawn."""
     check_ported(cfg)
-    dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
     dense = cfg.replace(quant="dense") if cfg.quant == "ternary_packed" \
         else cfg
-    out: dict = {}
-    for path, d in leaves(param_defs(dense)):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        if d.init != "normal":
-            fill = torch.zeros if d.init == "zeros" else torch.ones
-            node[path[-1]] = fill(d.shape, dtype=d.dtype, device=dev)
-            continue
-        scale = np.float32(d.init_scale if d.init_scale is not None else 0.02)
-        packed = cfg.quant == "ternary_packed" and path[0] == "layers"
-        layers = []
-        for _ in range(d.shape[0] if path[0] == "layers" else 1):
-            shape = d.shape[1:] if path[0] == "layers" else d.shape
-            w = torch.from_numpy(
-                rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
-            if packed:
-                codes, alpha = ternary_quantize_lm(w)
-                layers.append((pack_ternary(codes), alpha.float()))
-            else:
-                layers.append(w.to(d.dtype))
-        if packed:
-            node["w2"] = torch.stack([c for c, _ in layers])
-            node["scale"] = torch.stack([a for _, a in layers])
-        elif path[0] == "layers":
-            node[path[-1]] = torch.stack(layers)
-        else:
-            node[path[-1]] = layers[0]
-    return out
+    return quantize_params(cfg, init_params(dense, seed, device))
+
+
+def lin_shapes(cfg: ModelConfig) -> set[tuple[int, int]]:
+    """`(K, N)` of every projection `_lin` defines in `cfg`'s tree."""
+    return {tuple(d.shape[-2:]) for _, d in
+            leaves(param_defs(cfg.replace(quant="dense"))) if d.lin}

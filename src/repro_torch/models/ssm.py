@@ -1,7 +1,20 @@
-"""RWKV-6 "Finch" mixers: data-dependent decay linear attention.
+"""State-space sequence mixers: Mamba (hymba's parallel head) and RWKV-6.
 
-The port of the RWKV-6 half of `repro.models.ssm` (Mamba comes with the
-hybrid slice).  The casts are the reference's: the streams, projections
+The port of `repro.models.ssm`.
+
+Mamba (selective SSM, diagonal A) is plain PyTorch, as the reference's is
+plain JAX: its prefill recurrence `h_t = Abar_t * h_{t-1} + Bu_t` runs as
+a loop over the sequence (the reference's `jax.lax.associative_scan`; the
+two differ only in float rounding order), decode as one state update.  A
+carried-in state enters step 0 as the reference adds it
+(`Bu.at[:, 0].add(Abar[:, 0] * h)`), and the conv state is the last
+`W - 1` pre-conv inputs.  Unlike the reference's `mamba_forward`, which
+zero-pads the causal conv whatever state it is given, the port's reads a
+given state's conv inputs as the left context, so a prefill split in two
+with the state carried across equals one pass; without a state (the only
+way the model calls it) the two agree.
+
+RWKV-6 "Finch": the casts are the reference's: the streams, projections
 and decay logits run in the compute dtype, the decay `exp(-exp(.))` is
 taken in float32, and so is the WKV recurrence, which goes to
 `kernels.ops.rwkv6_scan_heads` (on the card the hand-written kernel) on
@@ -9,6 +22,10 @@ the projections' own `(B, S, H, dh)` views, with no copy: r, k and v in
 the compute dtype, the decays in float32, the `(H, dh)` bonus shared by
 the batch.  The reference runs the same recurrence as a `lax.scan` over
 the sequence.
+
+Both Mamba's and RWKV-6's projections are dense `w` leaves: the reference
+reads them so whatever `cfg.quant` says, and the port serves both dense
+only (`models.params.check_ported`).
 """
 from __future__ import annotations
 
@@ -21,6 +38,86 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
 
 
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM, diagonal A): hymba's parallel head
+# ---------------------------------------------------------------------------
+class MambaState(NamedTuple):
+    h: torch.Tensor      # (B, d_inner, N) f32
+    conv: torch.Tensor   # (B, conv_w - 1, d_inner) the last pre-conv inputs
+
+
+def _causal_conv(xp: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over a window. xp: (B, W - 1 + S, C), the S
+    inputs after the W - 1 before them; w: (W, C); b: (C,) -> (B, S, C)."""
+    W = w.shape[0]
+    S = xp.shape[1] - (W - 1)
+    y = sum(xp[:, i:i + S, :] * w[i] for i in range(W))
+    return y + b
+
+
+def _mamba_inner(p: dict, xi: torch.Tensor):
+    """dt, B and C of the selective scan from the conv output xi (.., di):
+    (dt f32, Bm f32, Cm f32, A (di, N) f32)."""
+    dt = xi.dtype
+    A = -torch.exp(p["A_log"].float())                         # (di, N)
+    delta = F.softplus(xi @ p["w_dt"].to(dt) + p["dt_bias"].to(dt))
+    Bm = (xi @ p["w_B"].to(dt)).float()
+    Cm = (xi @ p["w_C"].to(dt)).float()
+    return delta.float(), Bm, Cm, A
+
+
+def mamba_forward(p: dict, x: torch.Tensor, state: MambaState | None = None
+                  ) -> tuple[torch.Tensor, MambaState]:
+    """Full-sequence selective scan. x: (B, S, D) -> ((B, S, D), state)."""
+    B, S, D = x.shape
+    dt = x.dtype
+    xz = x @ p["in_proj"]["w"].to(dt)                          # (B, S, 2*di)
+    xi, z = xz.chunk(2, dim=-1)
+    W = p["conv_w"].shape[0]
+    # the conv's inputs: the state's last W - 1 (zeros without one), then xi
+    lead = (torch.zeros_like(xi[:, :1]).expand(-1, W - 1, -1)
+            if state is None else state.conv.to(dt))
+    window = torch.cat([lead, xi], dim=1)
+    xi = F.silu(_causal_conv(window, p["conv_w"].to(dt), p["conv_b"].to(dt)))
+    dtf, Bm, Cm, A = _mamba_inner(p, xi)
+    Abar = torch.exp(dtf[..., None] * A)                       # (B, S, di, N)
+    Bu = (dtf * xi.float())[..., None] * Bm[:, :, None, :]
+    h = (torch.zeros_like(Bu[:, 0]) if state is None else state.h)
+    hs = []
+    for t in range(S):
+        h = Abar[:, t] * h + Bu[:, t]
+        hs.append(h)
+    h_all = torch.stack(hs, dim=1)                             # (B, S, di, N)
+    y = torch.einsum("bsdn,bsn->bsd", h_all, Cm)               # (B, S, di)
+    y = y + xi.float() * p["d_skip"].float()
+    y = y.to(dt) * F.silu(z)
+    out = y @ p["out_proj"]["w"].to(dt)
+    return out, MambaState(h=h, conv=window[:, S:])
+
+
+def mamba_decode(p: dict, x: torch.Tensor, state: MambaState
+                 ) -> tuple[torch.Tensor, MambaState]:
+    """One-token step. x: (B, 1, D) -> ((B, 1, D), new state)."""
+    dt = x.dtype
+    xz = x[:, 0] @ p["in_proj"]["w"].to(dt)
+    xi, z = xz.chunk(2, dim=-1)
+    window = torch.cat([state.conv.to(dt), xi[:, None, :]], dim=1)
+    xi = (window * p["conv_w"].to(dt)[None]).sum(dim=1) + p["conv_b"].to(dt)
+    xi = F.silu(xi)
+    dtf, Bm, Cm, A = _mamba_inner(p, xi)
+    Abar = torch.exp(dtf[:, :, None] * A)                      # (B, di, N)
+    h = Abar * state.h + (dtf * xi.float())[..., None] * Bm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Cm)
+    y = y + xi.float() * p["d_skip"].float()
+    y = y.to(dt) * F.silu(z)
+    out = (y @ p["out_proj"]["w"].to(dt))[:, None, :]
+    return out, MambaState(h=h, conv=window[:, 1:, :])
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 "Finch": data-dependent decay linear attention
+# ---------------------------------------------------------------------------
 class RWKVState(NamedTuple):
     shift_tm: torch.Tensor   # (B, D) previous token (time-mix)
     shift_cm: torch.Tensor   # (B, D) previous token (channel-mix)

@@ -1,15 +1,30 @@
-"""Model assembly for the dense and RWKV-6 families: forward, prefill and
-decode.
+"""Model assembly for every reference arch: forward, prefill and decode.
 
-The port of `repro.models.transformer` for dense llama-family models and
-RWKV-6 on one device.  The reference's `lax.scan` over the layer-stacked
-parameters is a Python loop over the leading L axis here, and the decode
-cache is updated in place (the reference returns a new cache; the port
-writes the step's K/V, or RWKV's shifts and WKV state, into the given one,
-which saves a copy of the whole cache per step).  Other families raise
-`NotImplementedError` (see ROADMAP.md).
+The port of `repro.models.transformer` on one device.  The reference's
+`lax.scan` over the layer-stacked parameters is a Python loop over the
+leading L axis here, and the decode cache is updated in place (the
+reference returns a new cache; the port writes the step's K/V, the Mamba
+state, or RWKV's shifts and WKV state into the given one, which saves a
+copy of the whole cache per step).  The families:
 
-Batch dict keys: tokens (B, S) int64 or int32 [+ positions (B, S)].
+  * dense (llama, the Qwen archs: QKV bias, qk-norm, a decoupled head_dim,
+    tied embeddings) and MoE (`models.moe`; arctic adds a dense residual
+    FFN in parallel), with sliding-window attention where the config has
+    it;
+  * hybrid (hymba): attention and a Mamba head on the same normed input,
+    their normed outputs averaged;
+  * encoder-decoder (whisper): an encoder stack over the frame embeddings
+    plus learned positions, then decoder layers with cross-attention over
+    the encoder's output (its K/V cached once at prefill);
+  * VLM (qwen2-vl): M-RoPE positions (B, 3, S) and vision embeddings
+    written over the first `n_vision_tokens` positions;
+  * RWKV-6.
+
+Batch dict keys: tokens (B, S) int64 or int32 [+ positions (B, S), or
+(B, 3, S) for M-RoPE] [+ vision_embeds (B, Nv, D) for a VLM] [+ enc_frames
+(B, enc_seq, D) for an encoder-decoder].  The KV cache is stored in the
+compute dtype or, with `kv_cache_dtype="float8_e4m3fn"`, in fp8 (written
+by a cast, read back to float32), as the reference does.
 """
 from __future__ import annotations
 
@@ -19,11 +34,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (
-    apply_rope, embed, layer_norm, linear, rms_norm, rope_cos_sin,
+    apply_rope, embed, layer_norm, linear, mrope_cos_sin, rms_norm,
+    rope_cos_sin,
 )
-from repro_torch.models.params import DTYPES, check_ported, is_rwkv
+from repro_torch.models.params import DTYPES, check_ported, is_hybrid, \
+    is_rwkv
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -31,11 +49,14 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _kv_dt(cfg: ModelConfig) -> torch.dtype:
-    if cfg.kv_cache_dtype != "compute":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported yet "
-            "(fp8 KV is queued in ROADMAP.md)")
-    return _cdt(cfg)
+    """KV-cache storage dtype: the compute dtype, or fp8 (math stays f32).
+    The reference treats an unknown name as "compute"; the port raises."""
+    if cfg.kv_cache_dtype == "compute":
+        return _cdt(cfg)
+    if cfg.kv_cache_dtype == "float8_e4m3fn":
+        return torch.float8_e4m3fn
+    raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}; use "
+                     "'compute' or 'float8_e4m3fn'")
 
 
 def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -77,8 +98,17 @@ def _attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin, *,
     return out, (k, v)
 
 
+def _cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """Cross-attention K/V of the encoder output: (B, Se, K, dh) each."""
+    B, Se, _ = enc_out.shape
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    k = linear(p["wk"], enc_out, cfg.quant).reshape(B, Se, K, dh)
+    v = linear(p["wv"], enc_out, cfg.quant).reshape(B, Se, K, dh)
+    return k, v
+
+
 def _mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act == "swiglu":
+    if cfg.act == "swiglu" and "w_gate" in p:
         h = torch.nn.functional.silu(linear(p["w_gate"], x, cfg.quant)) \
             * linear(p["w_up"], x, cfg.quant)
         return linear(p["w_down"], h, cfg.quant)
@@ -87,12 +117,34 @@ def _mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["w_out"], h, cfg.quant)
 
 
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN on the normed input: the MLP, or the MoE (plus
+    arctic's dense residual MLP in parallel)."""
+    if cfg.moe is None:
+        return _mlp(cfg, lp["mlp"], h)
+    y, _ = MOE.moe_ffn(lp["moe"], h, n_experts=cfg.moe.n_experts,
+                       top_k=cfg.moe.top_k,
+                       capacity_factor=cfg.moe.capacity_factor)
+    if cfg.moe.dense_residual:
+        y = y + _mlp(cfg, lp["mlp"], h)
+    return y
+
+
 def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
     a, kv = _attn_full(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), cos, sin,
                        window=cfg.swa_window)
     x = x + a
+    return x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x)), kv
+
+
+def _block_hybrid(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
+    h = _norm(cfg, lp["ln1"], x)
+    a, kv = _attn_full(cfg, lp["attn"], h, cos, sin, window=cfg.swa_window)
+    m, mstate = SSM.mamba_forward(lp["mamba"], h)
+    x = x + 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
+                   + _norm(cfg, lp["mamba_out_norm"], m))
     x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
-    return x, kv
+    return x, (kv, mstate)
 
 
 def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -107,10 +159,38 @@ def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return x + cm_out, (last_tm, last_cm, wkv)
 
 
-def _rope_for(cfg: ModelConfig, batch: dict, S: int, device):
+def _block_enc(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    a, _ = _attn_full(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), None, None,
+                      causal=False)
+    x = x + a
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+
+
+def _block_dec_xattn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                     enc_out: torch.Tensor, cos, sin):
+    a, kv = _attn_full(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), cos, sin)
+    x = x + a
+    xk, xv = _cross_kv(cfg, lp["xattn"], enc_out)
+    hq = _norm(cfg, lp["ln_x"], x)
+    B, S, _ = hq.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    q = linear(lp["xattn"]["wq"], hq, cfg.quant).reshape(B, S, H, dh)
+    o = ATT.blockwise_attention(q, xk, xv, causal=False,
+                                block_k=cfg.attn_block_k)
+    x = x + linear(lp["xattn"]["wo"], o.reshape(B, S, H * dh), cfg.quant)
+    x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    return x, (kv, (xk, xv))
+
+
+def _rope_for(cfg: ModelConfig, batch: dict, S: int, B: int, device):
     if cfg.rope == "none":
         return None, None
     pos = batch.get("positions")
+    if cfg.rope == "mrope":
+        if pos is None:
+            pos = torch.arange(S, device=device)[None, None, :].expand(B, 3, S)
+        return mrope_cos_sin(pos, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
     if pos is None:
         pos = torch.arange(S, device=device)[None, :]
     return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
@@ -119,20 +199,42 @@ def _rope_for(cfg: ModelConfig, batch: dict, S: int, device):
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             collect_cache: bool = False):
     """Full-sequence forward.  Returns (hidden (B, S, D), caches | None),
-    caches being each layer's (k, v), each (B, S, K, dh), or for RWKV-6
-    its (last time-mix input, last channel-mix input, WKV state)."""
+    caches being each layer's (k, v), each (B, S, K, dh); for the hybrid
+    ((k, v), MambaState), for the encoder-decoder ((k, v), (xk, xv)), for
+    RWKV-6 (last time-mix input, last channel-mix input, WKV state)."""
     check_ported(cfg)
+    comp = _cdt(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed(params["embed"]["tokens"], tokens, _cdt(cfg))
+    x = embed(params["embed"]["tokens"], tokens, comp)
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"]
+        if ve.shape[1] > S:
+            # the reference's dynamic_update_slice cannot place them
+            raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
+                             f"than its {ve.shape[1]} vision embeddings")
+        x = torch.cat([ve.to(comp), x[:, ve.shape[1]:]], dim=1)
     if is_rwkv(cfg):
         def body(xx, lp):
             return _block_rwkv(cfg, lp, xx)
     else:
-        cos, sin = _rope_for(cfg, batch, S, x.device)
+        cos, sin = _rope_for(cfg, batch, S, B, x.device)
+        if cfg.enc_layers:
+            enc = batch["enc_frames"].to(comp) \
+                + params["enc_pos"][None].to(comp)
+            for i in range(cfg.enc_layers):
+                enc = _block_enc(cfg, _layer(params["enc_layers"], i), enc)
+            enc_out = _norm(cfg, params["enc_final_norm"], enc)
+            x = x + params["dec_pos"][:S][None].to(comp)
 
-        def body(xx, lp):
-            return _block_dense(cfg, lp, xx, cos, sin)
+            def body(xx, lp):
+                return _block_dec_xattn(cfg, lp, xx, enc_out, cos, sin)
+        elif is_hybrid(cfg):
+            def body(xx, lp):
+                return _block_hybrid(cfg, lp, xx, cos, sin)
+        else:
+            def body(xx, lp):
+                return _block_dense(cfg, lp, xx, cos, sin)
     caches = []
     for i in range(cfg.n_layers):
         x, entry = body(x, _layer(params["layers"], i))
@@ -156,7 +258,7 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
 # Decode: cache init + single step
 # ---------------------------------------------------------------------------
 class CacheSpec(NamedTuple):
-    kind: str            # attn | rwkv (the kinds ported)
+    kind: str            # attn | hybrid | rwkv | encdec
     cache_len: int       # self-attn cache slots (window for SWA); 0 for rwkv
 
 
@@ -165,6 +267,10 @@ def cache_spec(cfg: ModelConfig, seq_len: int) -> CacheSpec:
     if is_rwkv(cfg):
         return CacheSpec("rwkv", 0)
     eff = min(seq_len, cfg.swa_window) if cfg.swa_window else seq_len
+    if is_hybrid(cfg):
+        return CacheSpec("hybrid", eff)
+    if cfg.enc_layers:
+        return CacheSpec("encdec", eff)
     return CacheSpec("attn", eff)
 
 
@@ -174,17 +280,26 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
     cache holds state, not positions, and ignores `seq_len`)."""
     spec = cache_spec(cfg, seq_len)
     L, B, D = cfg.n_layers, batch_size, cfg.d_model
+    comp = _cdt(cfg)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     if spec.kind == "rwkv":
         dh = cfg.head_dim
-        return {"shift_tm": torch.zeros((L, B, D), dtype=_cdt(cfg),
-                                        device=device),
-                "shift_cm": torch.zeros((L, B, D), dtype=_cdt(cfg),
-                                        device=device),
-                "wkv": torch.zeros((L, B, cfg.n_heads, dh, dh),
-                                   dtype=torch.float32, device=device)}
-    shape = (L, B, spec.cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=_kv_dt(cfg), device=device)
-            for n in ("k", "v")}
+        return {"shift_tm": zeros((L, B, D), comp),
+                "shift_cm": zeros((L, B, D), comp),
+                "wkv": zeros((L, B, cfg.n_heads, dh, dh), torch.float32)}
+    K, dh, kvdt = cfg.n_kv_heads, cfg.head_dim, _kv_dt(cfg)
+    c = {n: zeros((L, B, spec.cache_len, K, dh), kvdt) for n in ("k", "v")}
+    if spec.kind == "hybrid":
+        di = cfg.ssm.expand * D
+        c["mamba_h"] = zeros((L, B, di, cfg.ssm.state_size), torch.float32)
+        c["mamba_conv"] = zeros((L, B, cfg.ssm.conv_width - 1, di), comp)
+    if spec.kind == "encdec":
+        c["xk"] = zeros((L, B, cfg.enc_seq, K, dh), kvdt)
+        c["xv"] = zeros((L, B, cfg.enc_seq, K, dh), kvdt)
+    return c
 
 
 def _attn_decode(cfg, lp, x, cache_k, cache_v, cos, sin, mask, slot: int):
@@ -202,15 +317,32 @@ def _attn_decode(cfg, lp, x, cache_k, cache_v, cos, sin, mask, slot: int):
     return linear(lp["wo"], o.reshape(B, 1, H * dh), cfg.quant)
 
 
+def _decode_rope(cfg: ModelConfig, pos: int, B: int, device,
+                 positions: torch.Tensor | None):
+    if cfg.rope == "mrope":
+        p3 = positions if positions is not None else \
+            torch.full((B, 3, 1), pos, device=device)
+        return mrope_cos_sin(p3, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
+    if cfg.rope == "std":
+        return rope_cos_sin(torch.full((1, 1), pos, device=device),
+                            cfg.head_dim, cfg.rope_theta)
+    return None, None
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int,
+                positions: torch.Tensor | None = None):
     """One decode step for the whole batch at absolute position `pos`.
 
-    tokens: (B, 1).  Returns (logits (B, 1, V) f32, cache), the cache being
+    tokens: (B, 1); positions: M-RoPE ids (B, 3, 1), default `pos` in all
+    three streams.  Returns (logits (B, 1, V) f32, cache), the cache being
     the one given, updated in place.  An RWKV-6 step reads no position.
     """
-    x = embed(params["embed"]["tokens"], tokens, _cdt(cfg))
-    if cache_spec(cfg, 0).kind == "rwkv":
+    comp = _cdt(cfg)
+    x = embed(params["embed"]["tokens"], tokens, comp)
+    kind = cache_spec(cfg, 0).kind
+    if kind == "rwkv":
         for i in range(cfg.n_layers):
             st = SSM.RWKVState(cache["shift_tm"][i], cache["shift_cm"][i],
                                cache["wkv"][i])
@@ -222,12 +354,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         x = _norm(cfg, params["final_norm"], x)
         return logits_from_hidden(cfg, params, x), cache
     dev = x.device
+    B = x.shape[0]
     Sc = int(cache["k"].shape[2])
-    if cfg.rope == "std":
-        p1 = torch.full((1, 1), pos, device=dev)
-        cos, sin = rope_cos_sin(p1, cfg.head_dim, cfg.rope_theta)
-    else:
-        cos = sin = None
+    cos, sin = _decode_rope(cfg, pos, B, dev, positions)
     rolling = cfg.swa_window is not None and Sc == cfg.swa_window
     if rolling:
         slot, mask = ATT.rolling_slot(pos, Sc), ATT.rolling_mask(pos, Sc, dev)
@@ -238,12 +367,32 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             raise ValueError(f"decode position {pos} is outside the cache "
                              f"of {Sc} slots")
         slot, mask = pos, ATT.linear_mask(pos, Sc, dev)
+    if kind == "encdec":
+        x = x + params["dec_pos"][pos:pos + 1][None].to(comp)
+        all_enc = torch.ones(cache["xk"].shape[2], dtype=torch.bool,
+                             device=dev)
+    H, dh = cfg.n_heads, cfg.head_dim
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = _norm(cfg, lp["ln1"], x)
-        x = x + _attn_decode(cfg, lp["attn"], h, cache["k"][i],
-                             cache["v"][i], cos, sin, mask, slot)
-        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+        a = _attn_decode(cfg, lp["attn"], h, cache["k"][i], cache["v"][i],
+                         cos, sin, mask, slot)
+        if kind == "hybrid":
+            m, st = SSM.mamba_decode(lp["mamba"], h, SSM.MambaState(
+                cache["mamba_h"][i], cache["mamba_conv"][i]))
+            cache["mamba_h"][i] = st.h
+            cache["mamba_conv"][i] = st.conv
+            a = 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
+                       + _norm(cfg, lp["mamba_out_norm"], m))
+        x = x + a
+        if kind == "encdec":
+            hq = _norm(cfg, lp["ln_x"], x)
+            q = linear(lp["xattn"]["wq"], hq, cfg.quant).reshape(B, 1, H, dh)
+            xo = ATT.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                      all_enc)
+            x = x + linear(lp["xattn"]["wo"], xo.reshape(B, 1, H * dh),
+                           cfg.quant)
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))
     x = _norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), cache
 
@@ -251,15 +400,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     """Full-context forward that also builds the decode cache.
 
-    Returns (hidden (B, S, D), cache ready for `decode_step` at pos=S).
-    For SWA archs requires S % window == 0 (slot order == position order).
+    Returns (hidden (B, S, D), cache ready for `decode_step` at pos=S),
+    K/V cast to the KV dtype.  For SWA archs requires S % window == 0 when
+    S exceeds the window (slot order == position order).
     """
     x, caches = forward(cfg, params, batch, collect_cache=True)
     if is_rwkv(cfg):
         return x, {name: torch.stack([c[n] for c in caches]).contiguous()
                    for n, name in enumerate(SSM.RWKVState._fields)}
     S = x.shape[1]
-    Sc = cache_spec(cfg, cache_len).cache_len
+    spec = cache_spec(cfg, cache_len)
+    Sc = spec.cache_len
 
     def fit(t: torch.Tensor) -> torch.Tensor:
         # (L, B, S, K, dh) -> (L, B, Sc, K, dh)
@@ -271,8 +422,17 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
             return t[:, :, S - Sc:]
         return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Sc - S))
 
+    def stacked(entries, dtype) -> torch.Tensor:
+        return torch.stack(list(entries)).to(dtype).contiguous()
+
     kvdt = _kv_dt(cfg)
-    k = torch.stack([kv[0] for kv in caches])
-    v = torch.stack([kv[1] for kv in caches])
-    return x, {"k": fit(k).to(kvdt).contiguous(),
-               "v": fit(v).to(kvdt).contiguous()}
+    kvs = caches if spec.kind == "attn" else [c[0] for c in caches]
+    out = {"k": fit(torch.stack([kv[0] for kv in kvs])).to(kvdt).contiguous(),
+           "v": fit(torch.stack([kv[1] for kv in kvs])).to(kvdt).contiguous()}
+    if spec.kind == "hybrid":
+        out["mamba_h"] = stacked((c[1].h for c in caches), torch.float32)
+        out["mamba_conv"] = stacked((c[1].conv for c in caches), _cdt(cfg))
+    if spec.kind == "encdec":
+        out["xk"] = stacked((c[1][0] for c in caches), kvdt)
+        out["xv"] = stacked((c[1][1] for c in caches), kvdt)
+    return x, out

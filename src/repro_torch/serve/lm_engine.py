@@ -3,9 +3,12 @@
 The port of `repro.serve.lm_engine`.  Requests are bucketed by prompt
 length (the decode step is batch-uniform in position), cut into groups of
 at most `max_batch`, prefilled once per group and decoded greedily until
-`max_new_tokens` or EOS, with the reference's bookkeeping.  An RWKV-6
-model keeps recurrent state instead of a KV cache, so `cache_len` does
-not bound it.  Greedy picks
+`max_new_tokens` or EOS, with the reference's bookkeeping.  A group's
+batch (`make_batch`) carries the reference's stub frontends: zero vision
+embeddings and M-RoPE positions `(B, 3, S)` for a VLM, zero frame
+embeddings `(B, enc_seq, D)` for an encoder-decoder.  An RWKV-6 model
+keeps recurrent state instead of a KV cache, so `cache_len` does not
+bound it.  Greedy picks
 `torch.argmax`, whose ties go to the first index as `jnp.argmax`'s do.
 
 `LMServeStats` counts prefill tokens, decode steps and their wall times
@@ -65,6 +68,23 @@ class LMServeStats:
         }
 
 
+def make_batch(cfg: ModelConfig, tokens: np.ndarray, device) -> dict:
+    """The prefill batch of `tokens` (B, S) on `device`, with the stub
+    frontend inputs the reference's `_make_batch` builds."""
+    B, S = tokens.shape
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.zeros(
+            (B, cfg.n_vision_tokens, cfg.d_model), dtype=torch.float32,
+            device=device)
+        batch["positions"] = torch.arange(S, device=device)[None, None, :] \
+            .expand(B, 3, S)
+    if cfg.enc_layers:
+        batch["enc_frames"] = torch.zeros((B, cfg.enc_seq, cfg.d_model),
+                                          dtype=torch.float32, device=device)
+    return batch
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 8,
                  cache_len: int = 256, device=None):
@@ -100,7 +120,7 @@ class ServingEngine:
         for i, r in enumerate(group):
             toks[i, : len(r.prompt)] = r.prompt
         t0 = time.perf_counter()
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = make_batch(cfg, toks, self.device)
         hidden, cache = TF.prefill(cfg, self.params, batch, self.cache_len)
         logits = TF.logits_from_hidden(cfg, self.params, hidden[:, -1:, :])
         tok = torch.argmax(logits, dim=-1)                         # (B, 1)

@@ -104,11 +104,11 @@ def test_ternary_matmul_kernel_inside_f32_envelope(cuda, M, K, N, dtype):
 
 def test_lm_engine_projections_run_through_the_kernel(cuda):
     from repro_torch.configs import get_config
-    from repro_torch.models.params import seeded_params
+    from repro_torch.models.params import serving_params
     from repro_torch.serve.lm_engine import Request, ServingEngine
 
     cfg = get_config("llama3.2-1b").reduced().replace(quant="ternary_packed")
-    eng = ServingEngine(cfg, seeded_params(cfg, 0, cuda), max_batch=2,
+    eng = ServingEngine(cfg, serving_params(cfg, 0, cuda), max_batch=2,
                         cache_len=32, device=cuda)
     CT.reset_launches()
     reqs = eng.run([Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4)
@@ -189,12 +189,12 @@ def test_lm_engine_launches_counted_by_variant(cuda, dtype):
     """Decode steps (M <= 8) run split-K; prefills of 2 x 12 tokens run the
     tensor cores in bf16 and the CUDA-core kernel in f32."""
     from repro_torch.configs import get_config
-    from repro_torch.models.params import seeded_params
+    from repro_torch.models.params import serving_params
     from repro_torch.serve.lm_engine import Request, ServingEngine
 
     cfg = get_config("llama3.2-1b").reduced().replace(
         quant="ternary_packed", param_dtype=dtype, compute_dtype=dtype)
-    eng = ServingEngine(cfg, seeded_params(cfg, 0, cuda), max_batch=2,
+    eng = ServingEngine(cfg, serving_params(cfg, 0, cuda), max_batch=2,
                         cache_len=32, device=cuda)
     CT.reset_launches()
     reqs = eng.run([Request(uid=i, prompt=list(range(1 + i, 13 + i)),

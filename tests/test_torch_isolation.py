@@ -1,9 +1,14 @@
 """The port stands alone: no JAX, nothing of `repro`, no silent CPU.
 
 * Importing `repro_torch`, serving a committed bundle, running one
-  reduced LM decode step, serving a reduced RWKV-6 model and a packed
-  popcount load neither `jax` nor any `repro` module (checked in a fresh
-  interpreter); nor do the campaign modules (CGP, PCC, NSGA-II, the TNN
+  reduced LM decode step, serving a reduced RWKV-6 model, serving each
+  row of `launch/families.py` (the rows `chip_smoke.py`'s `lm_families`
+  phase serves) reduced (MoE through `models/moe.py`, the Mamba hybrid,
+  whisper, Qwen2-VL, the Qwen archs, an fp8 KV cache; weights from
+  `serving_params`), importing `chip_smoke.py` itself, and a packed
+  popcount load neither `jax` nor
+  any `repro` module (checked in a fresh interpreter); nor do the
+  campaign modules (CGP, PCC, NSGA-II, the TNN
   problem, the datasets) running a tiny cardio search; nor does the
   pipeline (QAT, the optimizer, lowering, the Verilog writer and reader,
   the bundle writer and the export CLI) training and emitting a cardio
@@ -39,7 +44,7 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.compile import artifact as A  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import dispatch as D  # noqa: E402
-from repro_torch.models.params import init_params, seeded_params  # noqa: E402,E501
+from repro_torch.models.params import init_params, serving_params  # noqa: E402,E501
 from repro_torch.serve.lm_engine import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,10 +81,10 @@ import repro_torch.launch.serve
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as TF
-from repro_torch.models.params import seeded_params
+from repro_torch.models.params import serving_params
 from repro_torch.serve.lm_engine import Request, ServingEngine
 cfg = get_config("llama3.2-1b").reduced().replace(quant="ternary_packed")
-params = seeded_params(cfg, 0, "cpu")
+params = serving_params(cfg, 0, "cpu")
 cache = TF.init_cache(cfg, 1, 8, device="cpu")
 logits, _ = TF.decode_step(cfg, params, cache, torch.tensor([[3]]), 0)
 ok &= bool(torch.isfinite(logits).all())
@@ -92,6 +97,22 @@ ok &= len(ServingEngine(rcfg, init_params(rcfg, 0, "cpu"), 1, 8,
           .output) == 2
 words = torch.tensor([[1, -1]], dtype=torch.int32)
 ok &= ops.packed_popcount(words).tolist() == [33]
+sys.path.insert(0, {str(ROOT)!r})
+import chip_smoke
+import repro_torch.models.moe
+from repro_torch.configs import ARCHS
+from repro_torch.launch.families import FAMILIES
+served = set()
+for fam in FAMILIES:
+    small = get_config(fam.arch).reduced().replace(quant=fam.quant,
+                                                   **dict(fam.over))
+    ok &= fam.config().d_model == get_config(fam.arch).d_model
+    eng = ServingEngine(small, serving_params(small, 0, "cpu"), 2, 16,
+                        device="cpu")
+    ok &= len(eng.run([Request(0, list(range(1, 9)), 2)])[0].output) == 2
+    ok &= sum(chip_smoke.family_launches(small, 1, 1).values()) >= 0
+    served.add(fam.arch)
+ok &= served == set(ARCHS) - {{"rwkv6-7b"}}
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(json.dumps({{"ok": ok, "bad": bad}}))
@@ -332,7 +353,7 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         D.replica_devices(0)
     cfg = get_config("llama3.2-1b").reduced()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        seeded_params(cfg)
+        serving_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -222,7 +222,7 @@ def test_quantized_rwkv_is_refused(quant):
     quant mode; the port refuses the modes it would serve wrongly."""
     cfg = reduced().replace(quant=quant)
     for build in (P.param_defs, lambda c: P.init_params(c, device="cpu"),
-                  lambda c: P.seeded_params(c, device="cpu")):
+                  lambda c: P.serving_params(c, device="cpu")):
         with pytest.raises(ValueError, match="dense only"):
             build(cfg)
     with pytest.raises(ValueError, match="dense only"):

@@ -9,6 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cuda_ternary_matmul as CT  # noqa: E402
+from repro_torch.launch.families import FAMILIES  # noqa: E402
+from repro_torch.models import params as P  # noqa: E402
 
 # llama3.2-1b's projections, (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
 LLAMA_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
@@ -109,6 +111,28 @@ def test_plan_raises_type_error_on_dtype_as_check_operands_does(dtype):
 def test_reset_launches_clears_every_count():
     CT.LAUNCHES["ternary_matmul"] = 3
     CT.VARIANT_LAUNCHES["tensor_core"] = 2
+    CT.SHAPE_LAUNCHES[8, 2048, 512, torch.bfloat16] = 4
     CT.reset_launches()
     assert CT.LAUNCHES == {"ternary_matmul": 0}
     assert CT.VARIANT_LAUNCHES == dict.fromkeys(CT.VARIANTS, 0)
+    assert not CT.SHAPE_LAUNCHES
+
+
+@pytest.mark.parametrize("fam", [f for f in FAMILIES
+                                 if f.quant == "ternary_packed"],
+                         ids=lambda f: f.arch)
+def test_served_family_shapes_have_plans(fam):
+    """Every shape a served family gives the kernel in bf16 — decode at
+    batch 1 (the warm-up) and 8, prefill of one prompt and of 8, whisper's
+    encoder over 1 and 8 x 1,500 frames — has a plan: split-K at decode,
+    the tensor cores at prefill."""
+    cfg = fam.config()
+    ms = {1: "split_k", 8: "split_k", fam.prompt_tokens: "tensor_core",
+          8 * fam.prompt_tokens: "tensor_core"}
+    if cfg.enc_layers:
+        ms |= {cfg.enc_seq: "tensor_core", 8 * cfg.enc_seq: "tensor_core"}
+    for K, N in P.lin_shapes(cfg):
+        for M, variant in ms.items():
+            p = CT.plan(M, K, N, torch.bfloat16)
+            assert p.variant == variant, (M, K, N)
+            assert p.rows * (p.splits - 1) < K // 4 <= p.rows * p.splits

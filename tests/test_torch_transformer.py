@@ -153,8 +153,43 @@ def test_params_from_reference_carries_bf16_bits():
     assert got["z"].dtype == torch.int8
 
 
-def test_other_families_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.param_defs(reduced("dense").replace(family="moe"))
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("mixtral-8x22b")
+def _vlm_short_prompt():
+    cfg = get_config("qwen2-vl-72b").reduced()          # 4 vision tokens
+    tp = P.init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 3), dtype=torch.long),
+             "vision_embeds": torch.zeros((1, cfg.n_vision_tokens,
+                                           cfg.d_model))}
+    TF.forward(cfg, tp, batch)
+
+
+def _unknown_kv_dtype():
+    TF.init_cache(reduced("dense").replace(kv_cache_dtype="int4"), 1, 4,
+                  device="cpu")
+
+
+REFUSED = {
+    # the reference's Mamba and RWKV blocks read dense `w` leaves whatever
+    # the quant (under "ternary_packed" the reference raises KeyError)
+    **{f"{arch}-{quant}": (
+        ValueError, "dense only",
+        lambda a=arch, q=quant: P.param_defs(
+            get_config(a).reduced().replace(quant=q)))
+       for arch in ("hymba-1.5b", "rwkv6-7b")
+       for quant in ("ternary", "ternary_packed")},
+    "vlm-prompt-shorter-than-vision-tokens": (
+        ValueError, "shorter than", _vlm_short_prompt),
+    "unknown-arch": (KeyError, "unknown arch",
+                     lambda: get_config("llama3.2-70b")),
+    "unknown-kv-cache-dtype": (ValueError, "kv_cache_dtype",
+                               _unknown_kv_dtype),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_other_families_not_ported(case):
+    """Every reference arch is ported; what the port still refuses: the
+    dense-only blocks under a quantized mode, a VLM prompt shorter than its
+    vision embeddings, an unknown arch id and an unknown KV-cache dtype."""
+    exc, match, call = REFUSED[case]
+    with pytest.raises(exc, match=match):
+        call()

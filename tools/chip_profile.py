@@ -4,6 +4,7 @@
     python3 tools/chip_profile.py          # compiled classifiers
     python3 tools/chip_profile.py --lm     # llama3.2-1b, ternary_packed
     python3 tools/chip_profile.py --lm --arch rwkv6-7b   # dense bf16
+    python3 tools/chip_profile.py --families   # launch.families.FAMILIES
 
 Loads the arrhythmia and cardio tenants of `tests/golden_emit/` on the
 current CUDA device and, at 1,024 and 65,536 readings a dispatch, prints
@@ -21,14 +22,21 @@ one JSON line each with:
     wall time, and the five largest device-side entries.
 
 With `--lm` it serves llama3.2-1b at full width (bf16, 2-bit packed
-ternary projections, weights from numpy seed 0), or with `--arch
-rwkv6-7b` RWKV-6 at full width (dense bf16, the reference's init drawn on
-the card from seed 0), and prints one JSON line each for a prefill of
+ternary projections), or with `--arch rwkv6-7b` RWKV-6 at full width
+(dense bf16), weights drawn on the card from seed 0 by
+`models.params.serving_params`, and prints one JSON line each for a prefill of
 8 x 96 prompt tokens and for decode steps at batch 8 (positions 96
 onwards): the unprofiled median host-clock time of the step (ending with
 the tokens on the host, as the engine's), and under `torch.profiler` the
 device busy share and the largest device-side entries, with each
 hand-written kernel's share of the busy time.
+
+With `--families` it does the same for every row of
+`repro_torch.launch.families.FAMILIES` in turn (each arch at its
+published width and the depth, quant, prompt length and `cache_len`
+`chip_smoke.py`'s `lm_families` phase serves, weights drawn on the card
+from seed 0 and packed there): a prefill of 8 prompts and decode steps
+from it, one JSON line each, tagged with the arch.
 
 The profiler adds its own host overhead to the wall time, so the busy
 share it reports is a lower bound.  Exits non-zero without a CUDA device.
@@ -108,34 +116,57 @@ def device_profile(fn, reps: int) -> dict:
 
 def profile_lm(arch: str) -> None:
     """Prefill and decode of llama3.2-1b (ternary_packed, bf16) or
-    rwkv6-7b (dense, bf16)."""
-    import torch
-
+    rwkv6-7b (dense, bf16), prompts of 96 tokens."""
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as TF
-    from repro_torch.models.params import init_params, seeded_params
-    from repro_torch.serve.lm_engine import ServingEngine
+    from repro_torch.models.params import serving_params
 
     cfg = get_config(arch)
     if arch == "llama3.2-1b":
         cfg = cfg.replace(quant="ternary_packed")
-    params = (seeded_params if cfg.quant == "ternary_packed"
-              else init_params)(cfg, 0)
-    engine = ServingEngine(cfg, params, max_batch=8, cache_len=256)
+    profile_steps(cfg, serving_params(cfg, 0), 96, 256)
+
+
+def profile_families() -> None:
+    """Every row of `launch.families.FAMILIES`, built and served as
+    `chip_smoke.py`'s `lm_families` phase does."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.families import FAMILIES
+    from repro_torch.models.params import serving_params
+
+    for fam in FAMILIES:
+        cfg = fam.config()
+        profile_steps(cfg, serving_params(cfg, 0), fam.prompt_tokens,
+                      fam.cache_len)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_steps(cfg, params: dict, plen: int, cache_len: int) -> None:
+    """One JSON line for a prefill of 8 seeded prompts of `plen` tokens
+    and one for decode steps at batch 8 from it."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.lm_engine import ServingEngine, make_batch
+
+    engine = ServingEngine(cfg, params, max_batch=8, cache_len=cache_len)
     params = engine.params
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (8, 96))).to(
-        engine.device)
+    batch = make_batch(cfg, rng.integers(1, cfg.vocab, (8, plen)),
+                       engine.device)
 
     def prefill():
         with torch.inference_mode():
-            hidden, cache = TF.prefill(cfg, params, {"tokens": tokens}, 256)
+            hidden, cache = TF.prefill(cfg, params, batch, cache_len)
             logits = TF.logits_from_hidden(cfg, params, hidden[:, -1:])
             return torch.argmax(logits, dim=-1).cpu(), cache
 
     tok, cache = prefill()
     tok = tok.to(engine.device)
-    pos = [96]
+    pos = [plen]
 
     def decode():
         with torch.inference_mode():
@@ -144,11 +175,14 @@ def profile_lm(arch: str) -> None:
         pos[0] += 1
 
     print(json.dumps({"lm": cfg.name, "phase": "prefill", "batch": 8,
-                      "prompt_tokens": 96,
+                      "n_layers": cfg.n_layers, "quant": cfg.quant,
+                      "kv_cache_dtype": cfg.kv_cache_dtype,
+                      "prompt_tokens": plen,
                       "step_ms": median_ms(lambda: prefill(), 5),
                       "profile": device_profile(lambda: prefill(), 3)}),
           flush=True)
     print(json.dumps({"lm": cfg.name, "phase": "decode", "batch": 8,
+                      "n_layers": cfg.n_layers,
                       "step_ms": median_ms(decode, 20),
                       "profile": device_profile(decode, 10)}), flush=True)
 
@@ -161,6 +195,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     args = sys.argv[1:]
+    if "--families" in args:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "torch": torch.__version__}), flush=True)
+        profile_families()
+        return 0
     if "--lm" in args:
         arch = args[args.index("--arch") + 1] if "--arch" in args \
             else "llama3.2-1b"
