@@ -50,7 +50,17 @@ package) and prints one JSON object per phase:
      state, every element inside the f32 envelope of the float64
      recurrence, the state written in place over s0 equal to the run out
      of place bit for bit, and runs split in two with the state carried
-     across equal to one pass, bit for bit;
+     across equal to one pass, bit for bit; the WKV-6 backward kernel
+     (`rwkv6_scan_bwd`) from its forward instance's checkpoints against
+     `rwkv6_scan_bwd_plain` and the float64 reverse recurrence, on the
+     (BH, T, dh) float32 layout and the model's strided bf16/f32 views
+     (off 16-byte boundaries too), dh in {16, 64}, T in {1, 13, 96,
+     256}, decays down to 1e-12, with and without s0 and a gradient on
+     the final state: every gradient and checkpoint inside the
+     forward's envelope applied to the absolute-value adjoint (plus one
+     bf16 rounding of dr, dk, dv), two launches bit-identical, and
+     `rwkv6_scan` under autograd launching one forward and one backward
+     with the backward kernel's gradients;
   4. `main_path` — the launch counters are zeroed, then each tenant of
      `tests/golden_emit/fleet.json` is loaded on the card and must
      reproduce `tests/golden/<name>.npz` labels; `scores` must equal the
@@ -189,10 +199,11 @@ package) and prints one JSON object per phase:
      split-K variant and every prefill launch through the tensor-core
      variant; every request must get its 32 tokens and the logits must be
      finite;
-  6. `lm_cross_device` — the same weights in float32, one 16-token prompt
-     and 8 greedy steps on the card (kernel) and on the CPU (plain
-     versions): logits agree within `LOGIT_TOL`, tokens agree wherever the
-     top-2 margin exceeds it;
+  6. `lm_cross_device` — the same weights in float32, their first
+     `LM_CROSS_DEPTH` layers, one 16-token prompt and 8 greedy steps on
+     the card (kernel) and on the CPU (plain versions): logits agree
+     within `LOGIT_TOL`, tokens agree wherever the top-2 margin exceeds
+     it;
   6a. `lm_families` — every row of `repro_torch.launch.families.FAMILIES`
      at its published width, weights drawn on the card from seed 0 by
      `serving_params` (packed there under ternary_packed), its depth
@@ -217,9 +228,9 @@ package) and prints one JSON object per phase:
      (`tope`, `keep`, the slots) equal, outputs within `MOE_TOL`;
      `lm_families_fp8` — the fp8 cache bytes a prefill writes on the card
      equal the CPU's cast of the same K/V; `lm_families_cross_device` —
-     whisper at full depth and hymba at 4 layers in float32, held as
-     `lm_cross_device` is, and llama3.2-1b with its fp8 KV cache in
-     float32 (`fp8_cross_device`): the prefill on each side, then greedy
+     whisper at 12 + 12 layers and hymba at 4 in float32, held as
+     `lm_cross_device` is, and llama3.2-1b at 8 layers with its fp8 KV
+     cache in float32 (`fp8_cross_device`): the prefill on each side, then greedy
      steps with the CPU handed the card's cache bytes each step, logits
      within `LOGIT_TOL`, tokens equal and cache values within one fp8
      step; `lm_families_ternary` — the ternary matmul at every shape the
@@ -241,6 +252,28 @@ package) and prints one JSON object per phase:
      widths at 2 layers in float32 (every leaf drawn, so `u`, `w0` and the
      token shifts are not zero), one 16-token prompt and 8 greedy steps on
      the card and on the CPU, held as `lm_cross_device` is;
+  6c. `training` — LM training through `train.loop.Trainer` (the
+     `TRAIN_*` constants): the ternary matmul refuses autograd; one train
+     step card against CPU in float32 from the same weights and stream on
+     reduced llama3.2-1b (ternary QAT), rwkv6-7b and mixtral
+     (`training_cross_device`: loss, every gradient and every updated
+     parameter held); rwkv6-7b at its published width cut to 4 of 32
+     layers (~1.4 B parameters, dense bf16, int8 AdamW moments, int8
+     gradient compression, 4 x 256 tokens in 2 microbatches, 6 steps),
+     the WKV counters zeroed just before and read just after: forward
+     twice a layer a microbatch a step (remat), backward once, no
+     ternary-matmul launch; one step under `torch.profiler` (busy share);
+     the backward kernel timed at the training shape on layer 0's
+     captured operands beside its plain version and bound
+     (`timing_rwkv_bwd`); llama3.2-1b at full width and depth in
+     `quant="ternary"` with f32 AdamW (8 x 256 tokens, 6 steps),
+     checkpointed at step 3 and resumed by a fresh Trainer: the restored
+     tensors equal the saved ones bit for bit and the step continues, no
+     WKV or ternary-matmul launch; `training_cli` — `python -m
+     repro_torch.launch.train --preset lm100m --device cuda --steps 30`
+     in a process of its own.  Every run's losses finite, the last below
+     the first; printed: tokens/s, step p50, peak memory, checkpoint save
+     and restore seconds;
   7. `launch_floor` — an empty kernel timed as the kernels are, and the
      card's `clocks.max.sm`; `timing` — kernel (CUDA events, median of 25
      after warm-up, with the program's schedule), plain version and bound
@@ -282,8 +315,10 @@ package) and prints one JSON object per phase:
      variant, and each new shape's times and bound); the popcount's with
      a `large` field and its design; the WKV
      scan's at the f32 prefill, with `decode`, `model_layout` and
-     `model_layout_decode` fields, its design and launches by design), the
-     card's name and power limit, and last `{"ok": true, "device": {...}}`.
+     `model_layout_decode` fields, its design and launches by design; the
+     WKV backward's at the rwkv6-7b training microbatch, its launches
+     from the `training` phase), the card's name and power limit, and
+     last `{"ok": true, "device": {...}}`.
 
 Float32 products on the card run in full float32: TF32 is switched off
 (`torch.backends.cuda.matmul.allow_tf32 = False`, and the same for cuDNN)
@@ -294,6 +329,7 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -334,9 +370,13 @@ LOGIT_TOL = 1e-3
 # 80 GB or the run's time), each served through `ServingEngine`.
 FAMILY_REQUESTS = 8
 FAMILY_NEW = 16
-# Card against CPU in float32: whisper at full depth (24 + 24), hymba at
-# this depth (its Mamba loop is host-heavy on the CPU), llama3.2-1b with
-# its fp8 KV cache at full depth.
+# Card against CPU in float32 at published width, depth cut for the run's
+# time (the CPU side runs the plain versions): llama3.2-1b (`lm_cross_device`
+# and with its fp8 KV cache) at LM_CROSS_DEPTH of 16 layers, whisper at
+# WHISPER_CROSS_DEPTH encoder and decoder layers of 24 + 24, hymba at
+# HYMBA_CROSS_DEPTH of 32 (its Mamba loop is host-heavy on the CPU).
+LM_CROSS_DEPTH = 8
+WHISPER_CROSS_DEPTH = 12
 HYMBA_CROSS_DEPTH = 4
 # One MoE layer alone, card against CPU, at the served prefill shape
 # (8 x 32 tokens) in bf16 (arctic's experts in float32 would not fit the
@@ -344,6 +384,33 @@ HYMBA_CROSS_DEPTH = 4
 # ulps of the largest output: each side rounds h and the products to bf16
 # after its own f32 sums).
 MOE_TOL = 2e-2
+# The training phase (LM training through `train.loop.Trainer`).  rwkv6-7b
+# at its published width, depth cut to TRAIN_RWKV_DEPTH of 32 layers (~1.4
+# B parameters), dense bf16 with int8 AdamW moments and int8 gradient
+# compression, TRAIN_RWKV_BATCH x TRAIN_SEQ tokens a step in
+# TRAIN_RWKV_MICRO microbatches; llama3.2-1b at full width and depth in
+# `quant="ternary"` (straight-through QAT) with f32 AdamW, TRAIN_LLAMA_BATCH
+# x TRAIN_SEQ a step, checkpointed at TRAIN_RESUME_STEP and resumed by a
+# fresh Trainer; TRAIN_STEPS steps each.
+TRAIN_STEPS = 6
+TRAIN_SEQ = 256
+TRAIN_RWKV_DEPTH = 4
+TRAIN_RWKV_BATCH = 4
+TRAIN_RWKV_MICRO = 2
+TRAIN_LLAMA_BATCH = 8
+TRAIN_RESUME_STEP = 3
+TRAIN_LR = 1e-4
+TRAIN_CLI_STEPS = 30
+# One train step card against CPU in float32 from the same weights, on
+# these reduced configs: loss within TRAIN_LOSS_TOL, every gradient within
+# TRAIN_GRAD_TOL x the largest gradient of the model (f32 sums in another
+# order; MoE routing and ternary codes equal, the flips are printed), the
+# updated parameters within what the first AdamW step makes of that
+# gradient difference (`adam_step_tol`).
+TRAIN_CROSS = (("llama3.2-1b", "ternary"), ("rwkv6-7b", "dense"),
+               ("mixtral-8x22b", "dense"))
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 # The kernels line's columns for each shape the families gave the kernel.
 FAMILY_SHAPE_FIELDS = ("M", "K", "N", "x", "variant", "ms", "plain_ms",
                        "bound_ms", "bound_by", "library_ms")
@@ -895,9 +962,24 @@ def lm_phases(dev, cfg16) -> dict:
         fail("lm_serving: non-finite logits")
     del engine, p16
 
-    cross_device("lm_cross_device", cfg32, p32,
+    cross_device("lm_cross_device", *first_layers(cfg32, p32,
+                                                  LM_CROSS_DEPTH),
                  lm_rng.integers(1, cfg32.vocab, 16).tolist())
     return {"launches": tm_launches, "by_variant": by_variant}
+
+
+def first_layers(cfg, params: dict, n: int) -> tuple:
+    """`cfg` and `params` cut to their first n layers (and n encoder
+    layers where the arch has an encoder): the stacked leaves sliced on
+    their L axis, the rest shared."""
+    from repro_torch.models import params as P
+
+    over = {"n_layers": n} | ({"enc_layers": n} if cfg.enc_layers else {})
+    cut = dict(params)
+    for name in ("layers", "enc_layers"):
+        if name in cut:
+            cut[name] = P.tree_map(lambda a: a[:n], cut[name])
+    return cfg.replace(**over), cut
 
 
 def family_launches(cfg, prefills: int, steps: int) -> dict:
@@ -1250,8 +1332,9 @@ def lm_families_phase(dev) -> dict:
     full width on the card (launches counted per arch, every shape the
     ternary matmul got recorded), with layer 0's MoE against the CPU for
     mixtral and arctic and the fp8 cache bytes against the CPU's cast for
-    llama; whisper at full depth, hymba at `HYMBA_CROSS_DEPTH` layers and
-    llama with its fp8 KV cache card against CPU in float32; then the
+    llama; whisper at `WHISPER_CROSS_DEPTH` layers (encoder and decoder),
+    hymba at `HYMBA_CROSS_DEPTH` and llama with its fp8 KV cache at
+    `LM_CROSS_DEPTH`, card against CPU in float32; then the
     ternary matmul at every shape served.  Returns the rows, the launches
     by arch and the matmul's rows."""
     import gc
@@ -1282,14 +1365,14 @@ def lm_families_phase(dev) -> dict:
         torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 2)
     f32 = {"param_dtype": "float32", "compute_dtype": "float32"}
-    cross = {"whisper-medium": None, "hymba-1.5b": HYMBA_CROSS_DEPTH,
-             "llama3.2-1b": None}
+    cross = {"whisper-medium": WHISPER_CROSS_DEPTH,
+             "hymba-1.5b": HYMBA_CROSS_DEPTH, "llama3.2-1b": LM_CROSS_DEPTH}
     for fam in FAMILIES:
         if fam.arch not in cross:
             continue
         cfg32 = fam.config(**f32)
-        if cross[fam.arch]:
-            cfg32 = cfg32.replace(n_layers=cross[fam.arch])
+        cfg32 = cfg32.replace(n_layers=cross[fam.arch], **(
+            {"enc_layers": cross[fam.arch]} if cfg32.enc_layers else {}))
         p32 = P.serving_params(cfg32, SEED, dev)
         prompt = rng.integers(1, cfg32.vocab, 16).tolist()
         if cfg32.kv_cache_dtype == "compute":
@@ -3204,6 +3287,479 @@ def ternary_timing(dev) -> list[dict]:
     return rows
 
 
+def wkv_bwd_check(args: tuple, dy, ds, stats: dict) -> None:
+    """The WKV-6 backward kernel on `(B, T, H, dh)` operands (r, k, v, w,
+    u, s0; s0 and the final state's gradient `ds` may be None), from the
+    checkpoints its forward instance kept, against `rwkv6_scan_bwd_plain`
+    (from the plain forward's checkpoints) and the float64 reverse
+    recurrence.  Every gradient element must lie inside eps (dh + 2T + 4)
+    times the same recurrence run on absolute values (the forward's
+    envelope, applied to the adjoint), plus one rounding of the output
+    type for bf16 dr, dk, dv; the checkpoints inside the forward's
+    envelope; a second launch bit-identical to the first."""
+    import torch
+
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
+    from repro_torch.kernels import rwkv6_scan as WKV
+
+    r, k, v, w, u, s0 = args
+    B, T, H, dh = r.shape
+    ck = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh),
+                     dtype=torch.float32, device=r.device)
+    CW.launch(r, k, v, w, u, s0, ckpt=ck)
+    got = CW.launch_bwd(r, k, v, w, u, ck, dy, ds)
+    again = CW.launch_bwd(r, k, v, w, u, ck, dy, ds)
+    ck_plain = torch.empty_like(ck)
+    WKV.rwkv6_scan_plain(r, k, v, w, u, s0, ckpt=ck_plain)
+    plain = WKV.rwkv6_scan_bwd_plain(r, k, v, w, u, ck_plain, dy, ds)
+
+    def f64(xs, fn):
+        return [None if a is None else fn(a.double()) for a in xs]
+
+    def reverse(xs, dy_, ds_):
+        c = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh),
+                        dtype=torch.float64, device=r.device)
+        WKV.rwkv6_scan_plain(*xs, ckpt=c)
+        return c, WKV.rwkv6_scan_bwd_plain(*xs[:5], c, dy_, ds_)
+
+    ck64, exact = reverse(f64(args, lambda a: a), *f64((dy, ds),
+                                                       lambda a: a))
+    ck_abs, env = reverse(f64(args, torch.abs), *f64((dy, ds), torch.abs))
+    gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
+    ratio = plain_ratio = 0.0
+    for g, p, e, m in zip(got + (ck,), plain + (ck_plain,), exact + (ck64,),
+                          env + (ck_abs,)):
+        if not g.numel():
+            continue
+        bound = gamma * m + 1e-30
+        if g.dtype == torch.bfloat16:       # one rounding of the f32 sum
+            bound = bound * (1 + 2.0 ** -8) + 2.0 ** -8 * e.abs()
+        ratio = max(ratio, float(((g.double() - e).abs() / bound).max()))
+        plain_ratio = max(plain_ratio,
+                          float(((p.double() - e).abs() / bound).max()))
+        stats["max_abs_err"] = max(stats["max_abs_err"],
+                                   float((g.float() - p.float()).abs().max()))
+    torch.cuda.synchronize()
+    stats["cases"] += 1
+    stats["mismatches"] += int(ratio > 1)
+    stats["plain_mismatches"] += int(plain_ratio > 1)
+    stats["not_bit_identical"] += int(not all(
+        torch.equal(a, b) for a, b in zip(got, again)))
+    stats["max_err_over_envelope"] = max(stats["max_err_over_envelope"],
+                                         ratio)
+
+
+def wkv_bwd_vs_plain(dev, rng) -> dict:
+    """The WKV-6 backward grid of `kernel_vs_plain`: the reference's
+    `(BH, T, dh)` float32 layout (as H = 1) and the model's strided
+    `(B, T, H, dh)` bf16 and float32 views (u shared by the batch, views
+    off 16-byte boundaries), dh 16 and 64, T of 1, 13, 96 and 256 (the
+    training shape among them), decays log-uniform down to 1e-12, with
+    and without an initial state and a gradient on the final state; then
+    `rwkv6_scan` under autograd, which must launch the forward and the
+    backward kernel once each and give the backward kernel's gradients."""
+    import torch
+
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
+    from repro_torch.kernels import rwkv6_scan as WKV
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    stats = {"cases": 0, "mismatches": 0, "plain_mismatches": 0,
+             "max_err_over_envelope": 0.0, "max_abs_err": 0.0,
+             "not_bit_identical": 0}
+    grid = []
+    for T in (1, 13, 96, 256):
+        for dh in (16, 64):
+            for state in (False, True):
+                grid.append((torch.float32, (64, T, 1, dh), 0, state, False))
+                grid.append((torch.bfloat16 if dh == 64 else torch.float32,
+                             (2, T, 4, dh), int(state), state, True))
+    grid.append((torch.bfloat16, (2, 256, 64, 64), 0, False, True))
+    for dtype, (B, T, H, dh), offset, state, shared_u in grid:
+        r, k, v, w, u = model_layout(rng, dev, B, T, H, dh, dtype, offset)
+        if not shared_u:
+            u = t(rng.normal(0, 0.5, (B, H, dh)))
+        s0 = t(rng.standard_normal((B, H, dh, dh))) if state else None
+        ds = t(rng.standard_normal((B, H, dh, dh))) if state else None
+        dy = t(rng.standard_normal((B, T, H, dh)))
+        wkv_bwd_check((r, k, v, w, u, s0), dy, ds, stats)
+    # the autograd Function on the card: one forward and one backward
+    # launch, and the backward kernel's gradients
+    r, k, v, w, u = (a.detach().clone().requires_grad_() for a in
+                     model_layout(rng, dev, 2, 37, 3, 64, torch.bfloat16))
+    s0 = t(rng.standard_normal((2, 3, 64, 64))).requires_grad_()
+    before = dict(CW.LAUNCHES)
+    y, s = WKV.rwkv6_scan(r, k, v, w, u, s0)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad((y * dy).sum() + s.sum(),
+                                (r, k, v, w, u, s0))
+    launched = {n: CW.LAUNCHES[n] - before[n] for n in CW.LAUNCHES}
+    ck = torch.empty((2, 3, WKV.n_checkpoints(37), 64, 64),
+                     dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        CW.launch(r, k, v, w, u, s0, ckpt=ck)
+        want = CW.launch_bwd(r, k, v, w, u, ck, dy, torch.ones_like(s))
+    stats["autograd_launches"] = launched
+    stats["autograd_equals_kernel"] = all(
+        torch.equal(g, x) for g, x in zip(
+            grads, want[:4] + (want[4].sum(0), want[5])))
+    torch.cuda.synchronize()
+    return stats
+
+
+def adam_step_tol(p, g_cpu, g_card, clip: float, lr: float,
+                  eps: float):
+    """How far one first AdamW step (no weight decay) may move a
+    parameter apart on two devices whose gradients differ by
+    |g_card - g_cpu|: the step is lr u, u = g'/(|g'| + eps) of the clipped
+    g', so a difference dg' moves it by at most lr eps dg' / (|g'| - dg' +
+    eps)^2 (and never more than 2 lr), plus the f32 roundings of u (a few
+    ulps of |u| <= 1, in the bias corrections, sqrt and quotient) and of
+    p - lr u."""
+    import torch
+
+    f32 = float(np.finfo(np.float32).eps)
+    dg = (g_card.float() - g_cpu.float()).abs() * clip
+    gmin = torch.clamp(g_cpu.float().abs() * clip - dg, min=0.0)
+    return lr * torch.clamp(4 * eps * dg / (gmin + eps) ** 2, max=2.0) \
+        + 4 * f32 * (lr + p.float().abs())
+
+
+def train_cross_device(dev) -> list[dict]:
+    """One train step card against CPU, float32, from the same weights and
+    the same batch (each device draws it from the token stream: the
+    tokens must be equal), on each of `TRAIN_CROSS` reduced: loss, every
+    gradient and every updated parameter held (`TRAIN_LOSS_TOL`,
+    `TRAIN_GRAD_TOL`, `adam_step_tol`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train.loop import TrainLoopConfig, grads_of, \
+        make_train_step
+
+    rows = []
+    for arch, quant in TRAIN_CROSS:
+        cfg = get_config(arch).reduced().replace(quant=quant)
+        gen = torch.Generator().manual_seed(SEED + 1)
+
+        def drawn(a):      # leaves the init leaves constant get noise too
+            if a.numel() > 1 and float(a.std()) == 0.0:
+                return a + 0.1 * torch.randn(a.shape, generator=gen)
+            return a
+
+        p_cpu = P.tree_map(drawn, P.init_params(cfg, seed=SEED,
+                                                device="cpu"))
+        p_card = P.tree_map(lambda a: a.to(dev), p_cpu)
+        pcfg = TokenPipelineConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=4, seed=SEED)
+        b_cpu = TokenPipeline(pcfg, device="cpu").batch_at(1)
+        b_card = TokenPipeline(pcfg, device=dev).batch_at(1)
+        if not all(torch.equal(b_cpu[n], b_card[n].cpu()) for n in b_cpu):
+            fail(f"training: {arch}'s token stream differs card vs CPU")
+        g_cpu, m_cpu = grads_of(cfg, p_cpu, b_cpu)
+        g_card, m_card = grads_of(cfg, p_card, b_card)
+        ocfg = AdamWConfig(lr=TRAIN_LR)
+        step = make_train_step(cfg, TrainLoopConfig(optimizer=ocfg))
+        n_cpu, _, _, _ = step(p_cpu, adamw.init(p_cpu), b_cpu)
+        n_card, _, _, _ = step(p_card, adamw.init(p_card), b_card)
+        clip = float(adamw.clip_scale(ocfg, g_cpu))
+        gmax = max(float(g.abs().max()) for g in tree_leaves(g_cpu))
+        grad_ratio, step_ratio, worst = 0.0, 0.0, {}
+        for path, p, gc, gd, nc, nd in zip(P.leaves(p_cpu), *(
+                tree_leaves(x) for x in (p_cpu, g_cpu, g_card, n_cpu,
+                                         n_card))):
+            gd, nd = gd.cpu(), nd.cpu()
+            ratio = float((gd - gc).abs().max()) / (TRAIN_GRAD_TOL * gmax)
+            tol = adam_step_tol(p, gc, gd, clip, TRAIN_LR, ocfg.eps)
+            sratio = float(((nd - nc).abs() / tol).max())
+            name = "/".join(path[0])
+            if ratio > grad_ratio:
+                grad_ratio, worst["grad"] = ratio, name
+            if sratio > step_ratio:
+                step_ratio, worst["step"] = sratio, name
+        flips = 0
+        if quant == "ternary":          # the STE's codes on each device
+            from repro_torch.core.ternary import ternary_quantize_lm
+            for path, a in P.leaves(p_cpu):
+                if path[-1] == "w" and a.dim() == 3:
+                    for i in range(a.shape[0]):
+                        flips += int((ternary_quantize_lm(a[i])[0]
+                                      != ternary_quantize_lm(
+                                          a[i].to(dev))[0].cpu()).sum())
+        row = {"arch": arch, "quant": quant,
+               "loss_cpu": float(m_cpu["loss"]),
+               "loss_card": float(m_card["loss"]),
+               "grad_diff_over_tol": grad_ratio,
+               "step_diff_over_tol": step_ratio, "worst_leaf": worst,
+               "ternary_code_flips": flips}
+        rows.append(row)
+        say("training_cross_device", **row, loss_tol=TRAIN_LOSS_TOL,
+            grad_tol=TRAIN_GRAD_TOL)
+        if abs(row["loss_card"] - row["loss_cpu"]) > TRAIN_LOSS_TOL or \
+                grad_ratio > 1 or step_ratio > 1:
+            fail(f"training: {arch} card vs CPU outside its tolerance "
+                 f"({row})")
+    return rows
+
+
+def train_run(trainer, params, opt_state, start: int, err=None):
+    """`trainer.run` with its log kept; returns (params, opt_state,
+    result, log lines, seconds)."""
+    import torch
+
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, res = trainer.run(params, opt_state, start_step=start,
+                                         err_buf=err, log=lines.append)
+    torch.cuda.synchronize()
+    return params, opt_state, res, lines, time.perf_counter() - t0
+
+
+def training_phase(dev, smi: str) -> dict:
+    """LM training on the card through `train.loop.Trainer`: the ternary
+    matmul refuses autograd; one step
+    card vs CPU (`train_cross_device`); rwkv6-7b at published width, cut
+    to TRAIN_RWKV_DEPTH layers, bf16 with int8 AdamW moments, gradient
+    compression and TRAIN_RWKV_MICRO microbatches, its WKV launches
+    counted (forward twice a layer a microbatch a step under remat, the
+    backward once) and its backward kernel timed at the training shape;
+    llama3.2-1b at full width and depth in ternary QAT with f32 AdamW,
+    checkpointed at TRAIN_RESUME_STEP and resumed by a fresh Trainer
+    (restored tensors bit-exact, the step and the stream continued), no
+    ternary-matmul launch; `python -m repro_torch.launch.train --preset
+    lm100m` in a process of its own.  Losses finite and the last below
+    the first in every run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
+    from repro_torch.kernels import cuda_ternary_matmul as CT
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as WKV
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw, adamw8bit
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.optim.grad_compress import init_error_buffer
+    from repro_torch.roofline.kernel_model import wkv_bwd_bound_ms
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from chip_profile import device_profile
+
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    w2 = torch.zeros(16, 8, dtype=torch.int8, device=dev)
+    try:
+        ops.ternary_matmul(x, w2, torch.ones(1, 8, device=dev))
+        refused = False
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    if not refused:
+        fail("training: the ternary matmul ran under autograd")
+    cross = train_cross_device(dev)
+    tmp = Path(tempfile.mkdtemp(prefix="train_"))
+    out = {"cross_device": cross}
+
+    def check_losses(name, losses):
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"training: {name} losses {losses} are not finite and "
+                 "falling")
+
+    def summary(cfg, B, res, seconds, n_steps, peak):
+        times = res["times"]
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "vocab": cfg.vocab,
+                "quant": cfg.quant, "params": P.param_count(cfg),
+                "batch": B, "seq": TRAIN_SEQ, "steps": n_steps,
+                "losses": res["losses"], "seconds": seconds,
+                "step_ms": [1e3 * t for t in times],
+                "step_p50_ms": 1e3 * float(np.median(times[1:] or times)),
+                "tokens_per_s": B * TRAIN_SEQ
+                / float(np.median(times[1:] or times)),
+                "peak_memory_bytes": peak}
+
+    try:
+        # -- rwkv6-7b, published width, depth cut --------------------------
+        cfg = get_config("rwkv6-7b").replace(n_layers=TRAIN_RWKV_DEPTH,
+                                             opt_8bit=True)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_RWKV_BATCH, seed=SEED), device=dev)
+        loop = TrainLoopConfig(
+            total_steps=TRAIN_STEPS, microbatches=TRAIN_RWKV_MICRO,
+            ckpt_every=TRAIN_STEPS, grad_compress=True,
+            optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS))
+        trainer = Trainer(cfg, loop, pipe, str(tmp / "rwkv"), device=dev)
+        params = P.init_params(cfg, seed=SEED, device=dev)
+        opt = adamw8bit.init(params)
+        err = init_error_buffer(params)
+        captured = []
+        real = ops.rwkv6_scan_heads
+
+        def capture(r, k, v, w, u, s0=None, s_out=None):
+            if not captured:
+                captured.append(tuple(a.detach().clone()
+                                      for a in (r, k, v, w, u)))
+            return real(r, k, v, w, u, s0, s_out)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CW.reset_launches()
+        CT.reset_launches()
+        ops.rwkv6_scan_heads = capture
+        try:
+            params, opt, res, log, seconds = train_run(trainer, params, opt,
+                                                       0, err)
+        finally:
+            ops.rwkv6_scan_heads = real
+        launches = dict(CW.LAUNCHES)
+        res["times"] = trainer.stats.times
+        row = summary(cfg, TRAIN_RWKV_BATCH, res, seconds, TRAIN_STEPS,
+                      torch.cuda.max_memory_allocated())
+        per = cfg.n_layers * TRAIN_RWKV_MICRO * TRAIN_STEPS
+        want = {"rwkv6_scan": 2 * per, "rwkv6_scan_bwd": per}
+        row |= {"launches": launches, "expected": want,
+                "ternary_matmul_launches": CT.LAUNCHES["ternary_matmul"],
+                "opt_8bit": True, "grad_compress": True,
+                "microbatches": TRAIN_RWKV_MICRO, "remat": cfg.remat,
+                "log": log}
+        say("training_rwkv", **row)
+        check_losses("rwkv6-7b", res["losses"])
+        if launches != want:
+            fail(f"training: rwkv6-7b launched {launches}, expected {want} "
+                 "(forward twice a layer a microbatch a step under remat, "
+                 "the backward once)")
+        # one step under the profiler: the device's busy share
+        batch = pipe.batch_at(0)
+        prof = device_profile(lambda: trainer.train_step(
+            params, opt, batch, err), 1)
+        row["profile"] = prof
+        say("training_rwkv_profile", **prof)
+        # the backward kernel at the training shape, on layer 0's operands
+        r, k, v, w, u = captured[0]              # one microbatch's
+        B, T, H, dh = r.shape
+        ck = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh),
+                         dtype=torch.float32, device=dev)
+        CW.launch(r, k, v, w, u, None, ckpt=ck)
+        dy = torch.randn((B, T, H, dh), device=dev)
+        bwd = {"B": B, "T": T, "H": H, "dh": dh, "x": str(r.dtype)}
+        bwd["ms"] = gpu_ms(lambda: CW.launch_bwd(r, k, v, w, u, ck, dy,
+                                                 None), TIMED_REPS, True)
+        bwd["plain_ms"] = gpu_ms(lambda: WKV.rwkv6_scan_bwd_plain(
+            r, k, v, w, u, ck, dy, None), PLAIN_REPS, False)
+        bwd["bound_ms"], bwd["bound_by"] = wkv_bwd_bound_ms(
+            B * H, T, dh, False, False, r.element_size(), H)
+        bwd["library_ms"] = None
+        bwd["forward_ms"] = gpu_ms(lambda: CW.launch(r, k, v, w, u, None,
+                                                     ckpt=ck),
+                                   TIMED_REPS, True)
+        say("timing_rwkv_bwd", **bwd)
+        out["rwkv"], out["bwd_timing"] = row, bwd
+        del params, opt, err, trainer, captured, r, k, v, w, ck, dy
+        torch.cuda.empty_cache()
+
+        # -- llama3.2-1b, full, ternary QAT, checkpoint and resume ---------
+        cfg = get_config("llama3.2-1b").replace(quant="ternary")
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_LLAMA_BATCH, seed=SEED), device=dev)
+
+        def loop_to(total):
+            return TrainLoopConfig(
+                total_steps=total, ckpt_every=TRAIN_RESUME_STEP,
+                keep_ckpts=1, optimizer=AdamWConfig(
+                    lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS))
+
+        def init_fn():
+            p = P.init_params(cfg, seed=SEED, device=dev)
+            return p, adamw.init(p)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CW.reset_launches()
+        CT.reset_launches()
+        first = Trainer(cfg, loop_to(TRAIN_RESUME_STEP), pipe,
+                        str(tmp / "llama"), device=dev)
+        params, opt, start = first.resume_or_init(init_fn)
+        params, opt, res1, log1, s1 = train_run(first, params, opt, start)
+        peak = torch.cuda.max_memory_allocated()
+        res1["times"] = list(first.stats.times)
+        saved = [a.clone() for a in tree_leaves({"p": params, "o": {
+            "mu": opt.mu, "nu": opt.nu, "step": opt.step}})]
+        del params, opt
+        torch.cuda.empty_cache()
+        second = Trainer(cfg, loop_to(TRAIN_STEPS), pipe, str(tmp / "llama"),
+                         device=dev)
+        t0 = time.perf_counter()
+        params, opt, start = second.resume_or_init(init_fn)
+        restore_s = time.perf_counter() - t0
+        restored = tree_leaves({"p": params, "o": {
+            "mu": opt.mu, "nu": opt.nu, "step": opt.step}})
+        bit_exact = len(saved) == len(restored) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(saved, restored))
+        del saved, restored
+        params, opt, res2, log2, s2 = train_run(second, params, opt, start)
+        res = {"losses": res1["losses"] + res2["losses"],
+               "times": res1["times"] + list(second.stats.times)}
+        row = summary(cfg, TRAIN_LLAMA_BATCH, res, s1 + s2, TRAIN_STEPS,
+                      peak)
+        row |= {"launches": dict(CW.LAUNCHES),
+                "ternary_matmul_launches": CT.LAUNCHES["ternary_matmul"],
+                "resumed_from": start, "restore_s": restore_s,
+                "save_s": [s1 - sum(res1["times"]),
+                           s2 - sum(second.stats.times)],
+                "restored_bit_exact": bit_exact,
+                "last_step": res2["last_step"], "log": log1 + log2,
+                "checkpoint_steps": second.ckpt.all_steps()}
+        say("training_llama", **row)
+        check_losses("llama3.2-1b", res["losses"])
+        if start != TRAIN_RESUME_STEP or not bit_exact or \
+                res2["last_step"] != TRAIN_STEPS:
+            fail(f"training: the resume did not hold (from {start}, "
+                 f"bit-exact {bit_exact}, last step {res2['last_step']})")
+        if CT.LAUNCHES["ternary_matmul"] or sum(CW.LAUNCHES.values()):
+            fail("training: llama3.2-1b launched a kernel it must not "
+                 f"({CT.LAUNCHES}, {CW.LAUNCHES})")
+        out["llama"] = row
+        del params, opt, first, second
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- the CLI in a process of its own -----------------------------------
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as ck_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--preset",
+             "lm100m", "--device", "cuda", "--steps", str(TRAIN_CLI_STEPS),
+             "--ckpt-dir", ck_dir, "--ckpt-every", str(TRAIN_CLI_STEPS)],
+            capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"training: launch.train exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    say("training_cli", **cli, seconds=cli_s)
+    if not (cli["steps"] == TRAIN_CLI_STEPS
+            and cli["last_loss"] < cli["first_loss"]):
+        fail(f"training: launch.train gave {cli}")
+    out["cli"] = cli
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3411,8 +3967,9 @@ def main() -> int:
     tstats = ternary_vs_plain(dev, rng)
     pstats = popcount_vs_plain(dev, rng)
     wstats = wkv_vs_plain(dev, rng)
+    bstats = wkv_bwd_vs_plain(dev, rng)
     say("kernel_vs_plain", kernels=stats, ternary_matmul=tstats,
-        packed_popcount=pstats, rwkv6_scan=wstats)
+        packed_popcount=pstats, rwkv6_scan=wstats, rwkv6_scan_bwd=bstats)
     for name, s in stats.items():
         if s["mismatches"]:
             fail(f"{name}: {s['mismatches']} of {s['cases']} cases differ "
@@ -3443,6 +4000,20 @@ def main() -> int:
     if wstats["in_place_not_bit_identical"]:
         fail(f"rwkv6_scan: {wstats['in_place_not_bit_identical']} states "
              "written in place differ from the run out of place")
+    if bstats["mismatches"] or bstats["plain_mismatches"]:
+        fail(f"rwkv6_scan_bwd: {bstats['mismatches']} kernel and "
+             f"{bstats['plain_mismatches']} plain cases of {bstats['cases']} "
+             f"leave the f32 envelope (largest err/envelope "
+             f"{bstats['max_err_over_envelope']:.3f})")
+    if bstats["not_bit_identical"]:
+        fail(f"rwkv6_scan_bwd: {bstats['not_bit_identical']} cases differ "
+             "between two launches")
+    if bstats["autograd_launches"] != {"rwkv6_scan": 1,
+                                       "rwkv6_scan_bwd": 1} or \
+            not bstats["autograd_equals_kernel"]:
+        fail(f"rwkv6_scan under autograd launched "
+             f"{bstats['autograd_launches']} (one forward and one backward "
+             "expected) or its gradients differ from the backward kernel's")
     for name, counts in (("rwkv6_scan", wstats["designs"]),
                          ("packed_popcount", pstats["designs"]),
                          ("packed_popcount loads", {
@@ -3566,6 +4137,8 @@ def main() -> int:
     # -- 5b. the reference's other LM families at full width, counted ------
     families = lm_families_phase(dev)
     rwkv = rwkv_phases(dev, get_config("rwkv6-7b"))
+    # -- 5c. LM training on the card, counted; card against CPU ------------
+    train = training_phase(dev, smi)
 
     # -- 7. timing ----------------------------------------------------------
     mhz = max_sm_clock_mhz()
@@ -3850,6 +4423,28 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "design")} | {"shape": "decode: (8, 1, 64, 64) bf16 views, "
                                     "state in place"}},
+        {"name": "rwkv6_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:34",
+         "note": "the gradient of row 6: the reference has no backward "
+                 "Pallas kernel and differentiates the recurrence's "
+                 "lax.scan (src/repro/models/ssm.py:163)",
+         "launches": train["rwkv"]["launches"]["rwkv6_scan_bwd"],
+         "forward_launches_with_checkpoints":
+             train["rwkv"]["launches"]["rwkv6_scan"],
+         "max_abs_err": bstats["max_abs_err"],
+         "ms": train["bwd_timing"]["ms"],
+         "plain_ms": train["bwd_timing"]["plain_ms"],
+         "bound_ms": train["bwd_timing"]["bound_ms"],
+         "bound_by": train["bwd_timing"]["bound_by"], "library_ms": None,
+         "cases": bstats["cases"], "mismatches": bstats["mismatches"],
+         "design": "a block a (b, h) row; the gradient of the state an R x C "
+                   "tile a thread in registers; 16-token chunks recomputed "
+                   "forward from the forward's checkpoints into a per-row "
+                   "scratch, then walked in reverse; row sums by an xor "
+                   "butterfly, dv and du in a fixed order, no atomics",
+         "shape": "rwkv6-7b training microbatch: (2, 256, 64, 64) bf16, "
+                  "u (64, 64)"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

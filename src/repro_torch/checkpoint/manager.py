@@ -20,6 +20,13 @@ so a snapshot either package wrote restores in the other:
   * background — `save(..., background=True)` copies every leaf to host
     memory synchronously and writes to disk on a thread.
 
+Each payload crosses the disk once a save and once a restore: a save
+builds `leaves.npz` in memory, hashes it while writing it (both release
+the interpreter lock), and a restore reads the file once, checks its
+hash and loads the leaves from the bytes read.  The bytes on disk are
+what `np.savez` writes to a file; this costs host memory of about twice
+the payload, in place of a second pass over the disk.
+
 Leaves are numpy arrays, tensors (on any device) or scalars.  `bfloat16`
 leaves travel as their 16 raw bits under the dtype name `bfloat16`, as the
 reference's `ml_dtypes` arrays do, and come back as `torch.bfloat16`.
@@ -29,6 +36,7 @@ port restores onto one device.
 from __future__ import annotations
 
 import hashlib
+import io
 import os
 import re
 import shutil
@@ -143,14 +151,23 @@ class CheckpointManager:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        leaves_path = os.path.join(tmp, "leaves.npz")
-        with open(leaves_path, "wb") as f:
-            np.savez(f, **{f"leaf_{i}": np.ascontiguousarray(a).view(np.uint8)
-                           for i, a in enumerate(arrays)})
-            f.flush()
-            os.fsync(f.fileno())
-        with open(leaves_path, "rb") as f:
-            manifest["leaves_sha256"] = hashlib.sha256(f.read()).hexdigest()
+        buf = io.BytesIO()
+        np.savez(buf, **{f"leaf_{i}": np.ascontiguousarray(a).view(np.uint8)
+                         for i, a in enumerate(arrays)})
+        payload = buf.getbuffer()
+        digest = hashlib.sha256()
+        hasher = threading.Thread(target=digest.update, args=(payload,))
+        hasher.start()                  # hashes while the payload is written
+        try:
+            with open(os.path.join(tmp, "leaves.npz"), "wb") as f:
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+        finally:
+            hasher.join()
+        manifest["leaves_sha256"] = digest.hexdigest()
+        del payload
+        buf.close()
         # manifest lands only after the payload it vouches for is durable
         with open(os.path.join(tmp, "MANIFEST.msgpack"), "wb") as f:
             f.write(msgpack_lite.pack(manifest))
@@ -175,8 +192,9 @@ class CheckpointManager:
         with open(path, "rb") as f:
             return msgpack_lite.unpack(f.read())
 
-    def validate(self, step: int) -> bool:
-        """True iff snapshot `step` is complete and passes its checksum."""
+    def _valid_payload(self, step: int) -> tuple[dict, bytes] | None:
+        """`(manifest, leaves.npz bytes)` of snapshot `step` if it is
+        complete and passes its checksum, else None."""
         d = os.path.join(self.dir, f"step_{step}")
         try:
             manifest = self._manifest(step)
@@ -184,12 +202,18 @@ class CheckpointManager:
                 payload = f.read()
             want = manifest.get("leaves_sha256")
             if want is not None:
-                return hashlib.sha256(payload).hexdigest() == want
-            # pre-checksum snapshot: at least require a loadable archive
-            np.load(os.path.join(d, "leaves.npz")).close()
-            return True
+                ok = hashlib.sha256(payload).hexdigest() == want
+            else:
+                # pre-checksum snapshot: at least require a loadable archive
+                np.load(io.BytesIO(payload)).close()
+                ok = True
+            return (manifest, payload) if ok else None
         except Exception:   # noqa: BLE001 — any decode failure is "invalid"
-            return False
+            return None
+
+    def validate(self, step: int) -> bool:
+        """True iff snapshot `step` is complete and passes its checksum."""
+        return self._valid_payload(step) is not None
 
     def latest_valid_step(self) -> int | None:
         for s in reversed(self.all_steps()):
@@ -218,15 +242,21 @@ class CheckpointManager:
         `torch.bfloat16` tensors, which numpy cannot hold); otherwise every
         leaf is a tensor on `device` (None: the current CUDA device)."""
         if step is None:
-            step = self.latest_valid_step()
-            if step is None:
+            found = None
+            for s in reversed(self.all_steps()):
+                found = self._valid_payload(s)
+                if found is not None:
+                    break
+            if found is None:
                 raise FileNotFoundError(
                     f"no valid checkpoints under {self.dir}")
-        elif not self.validate(step):
-            raise CheckpointCorruptError(
-                f"checkpoint step {step} under {self.dir} is missing or "
-                "fails its checksum")
-        manifest = self._manifest(step)
+        else:
+            found = self._valid_payload(step)
+            if found is None:
+                raise CheckpointCorruptError(
+                    f"checkpoint step {step} under {self.dir} is missing or "
+                    "fails its checksum")
+        manifest, payload = found
         flat = TU.flatten_with_paths(template)
         saved_paths = manifest["paths"]
         tmpl_paths = [p for p, _ in flat]
@@ -236,8 +266,7 @@ class CheckpointManager:
                 f"{set(saved_paths) ^ set(tmpl_paths)}")
         dev = resolve_device(device) if to_device else None
         out = []
-        with np.load(os.path.join(self.dir, f"step_{step}",
-                                  "leaves.npz")) as data:
+        with np.load(io.BytesIO(payload)) as data:
             for i, (_, leaf) in enumerate(flat):
                 raw = data[f"leaf_{i}"]
                 shape = tuple(manifest["shapes"][i])

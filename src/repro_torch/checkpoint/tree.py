@@ -6,6 +6,9 @@ for it; the port writes and reads the same lists with no JAX:
 
   * a dict's children in sorted key order, each under `[<repr(key)>]`
     (`['islands']`, `[3]`);
+  * a NamedTuple's in field order, each under `.<field>` (an optimizer
+    state: `['opt'].mu['embed']`, a `Q8Tensor`'s `.codes`), rebuilt as
+    the same NamedTuple type;
   * a list's or a tuple's in order, each under `[<index>]`;
   * `None` is a subtree with no leaves;
   * anything else (a numpy array, a tensor, a Python or numpy scalar) is
@@ -16,10 +19,16 @@ from __future__ import annotations
 from typing import Any
 
 
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def _children(node: Any) -> list[tuple[str, Any]] | None:
     """`[(path step, child)]` of an interior node, None for a leaf."""
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return [(f"[{i}]", c) for i, c in enumerate(node)]
     return None
@@ -60,6 +69,8 @@ def unflatten(template: Any, new_leaves: list[Any]) -> Any:
             return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(c) for c in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(c) for c in node)
         return next(it)

@@ -10,8 +10,10 @@ reference's float32 expressions op for op, and the backward masks equal
 JAX's, half the gradient at an exact clip boundary included.
 
 The LM codes are {-1, 0, +1} with a
-per-output-channel scale alpha = mean|W| (BitNet-b1.58 style), stored four
-to a byte along K:
+per-output-channel scale alpha = mean|W| (BitNet-b1.58 style); LM
+quantization-aware training runs through `ternary_ste_lm`, their value
+with the identity gradient.  Served, they are stored four to a byte
+along K:
 
     code 0b01 -> +1, 0b10 -> -1, 0b00 and 0b11 -> 0
 
@@ -78,6 +80,14 @@ def ternary_quantize_lm(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     alpha = w.abs().mean(dim=tuple(range(w.ndim - 1)), keepdim=True) + 1e-8
     codes = torch.clamp(torch.round(w / alpha), -1, 1)
     return codes, alpha
+
+
+def ternary_ste_lm(w: torch.Tensor) -> torch.Tensor:
+    """Absmean-scaled ternary forward with a straight-through backward
+    (the LM training path): the value `codes * alpha`, the gradient
+    dL/dw passed through unchanged, `w + (codes * alpha - w).detach()`."""
+    codes, alpha = ternary_quantize_lm(w)
+    return w + (codes * alpha - w).detach()
 
 
 def pack_ternary(codes: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Datasets of the port: the five seeded tabular stand-ins."""
+"""Datasets of the port: the five seeded tabular stand-ins and the
+synthetic LM token stream."""

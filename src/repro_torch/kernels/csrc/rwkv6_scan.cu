@@ -76,6 +76,8 @@ namespace {
 
 constexpr int TC = 8;      // tokens staged a chunk
 constexpr int STAGES = 3;  // chunks in the staging ring
+constexpr int CK = 16;     // tokens between the state checkpoints
+static_assert(CK % TC == 0, "a checkpoint falls on a chunk's start");
 
 struct Args {
   const void* rkv[3];  // r, k, v: float or bfloat16
@@ -84,6 +86,7 @@ struct Args {
   const float* s0;     // may be null; may alias s_out
   float* s_out;
   float* y;
+  float* ck;           // (B, H, ceil(T / CK), DH, DH) checkpoints, or null
   long long sB[4], sT[4];  // r, k, v, w: batch-row and token steps (elements)
   long long u_sb, y_sB, y_sT;
   int H, T;
@@ -298,7 +301,7 @@ struct Operands {
   float v[C];
 };
 
-template <int DH, typename T, bool VEC>
+template <int DH, typename T, bool VEC, bool SAVE>
 __global__ void __launch_bounds__(Geo<DH>::NT, 256 / Geo<DH>::NT)
     rwkv6_scan_kernel(const Args a) {
   using Gm = Geo<DH>;
@@ -358,6 +361,25 @@ __global__ void __launch_bounds__(Geo<DH>::NT, 256 / Geo<DH>::NT)
 
   for (int ch = 0; ch < nchunks; ++ch) {
     const int st = ch % STAGES, cnt = min(TC, a.T - ch * TC);
+    if constexpr (SAVE) {  // the state before token ch TC, every CK tokens
+      if ((ch * TC) % CK == 0) {
+        const int nck = (a.T + CK - 1) / CK;
+        float* ck = a.ck + (row * nck + ch * TC / CK) * DH * DH;
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          const int i = g * R + m;
+#pragma unroll
+          for (int n = 0; n < C; n += CV) {
+            if constexpr (CV == 1)
+              ck[i * DH + col(n)] = S[m][n];
+            else
+              *reinterpret_cast<float4*>(ck + i * DH + col(n)) =
+                  make_float4(S[m][n], S[m][n + 1], S[m][n + 2],
+                              S[m][n + 3]);
+          }
+        }
+      }
+    }
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // chunk ch landed; chunk ch - 1 summed
     stage_chunk(ch + STAGES - 1);  // into the stage chunk ch - 1 left
@@ -447,12 +469,20 @@ __global__ void __launch_bounds__(Geo<DH>::NT, 256 / Geo<DH>::NT)
   }
 }
 
-template <int DH, typename T>
+template <int DH, typename T, bool SAVE>
 void launch(const Args& a, int BH, bool vec, cudaStream_t s) {
   if (vec)
-    rwkv6_scan_kernel<DH, T, true><<<BH, Geo<DH>::NT, 0, s>>>(a);
+    rwkv6_scan_kernel<DH, T, true, SAVE><<<BH, Geo<DH>::NT, 0, s>>>(a);
   else
-    rwkv6_scan_kernel<DH, T, false><<<BH, Geo<DH>::NT, 0, s>>>(a);
+    rwkv6_scan_kernel<DH, T, false, SAVE><<<BH, Geo<DH>::NT, 0, s>>>(a);
+}
+
+template <int DH, typename T>
+void launch(const Args& a, int BH, bool vec, cudaStream_t s) {
+  if (a.ck)
+    launch<DH, T, true>(a, BH, vec, s);
+  else
+    launch<DH, T, false>(a, BH, vec, s);
 }
 
 template <int DH>
@@ -467,8 +497,12 @@ void launch(const Args& a, int BH, bool bf16, bool vec, cudaStream_t s) {
 
 // Plain C entry point, bound with ctypes.  Pointers are device pointers in
 // the layouts above; s0 may be null (zero initial state) and may equal
-// s_out.  `steps` is a host array of 11 element counts: sB and sT of r, k,
-// v and w in turn, then u_sb, y's batch step and y's token step.  `bf16`
+// s_out.  With `ck` not null (a gradient run) the state before tokens 0,
+// CK, 2 CK, ... of row (b, h) is also written to ck[b, h, t / CK], a
+// contiguous (B, H, ceil(T / CK), DH, DH) float32 tensor: a kernel
+// instance of its own, so the serving launches run the code they ran.
+// `steps` is a host array of 11 element counts: sB and sT of r, k, v and
+// w in turn, then u_sb, y's batch step and y's token step.  `bf16`
 // says r, k and v are bfloat16 (else float32); `vec16` that every operand
 // row and token, and both states, start on a 16-byte boundary (the caller
 // checks).  The caller guarantees BH = B x H >= 1, H >= 1 and T >= 0.
@@ -477,9 +511,9 @@ void launch(const Args& a, int BH, bool bf16, bool vec, cudaStream_t s) {
 // which is asynchronous on `stream`.
 extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* s0,
-                          void* y, void* s_out, const long long* steps,
-                          int BH, int H, int T, int DH, int bf16, int vec16,
-                          void* stream) {
+                          void* y, void* s_out, void* ck,
+                          const long long* steps, int BH, int H, int T,
+                          int DH, int bf16, int vec16, void* stream) {
   Args a;
   a.rkv[0] = r;
   a.rkv[1] = k;
@@ -489,6 +523,7 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
   a.s0 = static_cast<const float*>(s0);
   a.s_out = static_cast<float*>(s_out);
   a.y = static_cast<float*>(y);
+  a.ck = static_cast<float*>(ck);
   for (int x = 0; x < 4; ++x) {
     a.sB[x] = steps[2 * x];
     a.sT[x] = steps[2 * x + 1];
@@ -505,4 +540,324 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward pass: gradients of y and of the final state back to r, k, v,
+// w, u and s0.  The reference has no backward Pallas kernel (JAX
+// differentiates its `lax.scan`); this gives the card's forward the
+// gradient the reference's model has.  For each row (b, h), with G_T =
+// dL/dS_T (`ds`, zeros when null) and t = T .. 1:
+//   dr_t[i] = sum_j dy_t[j] S_{t-1}[i][j] + u_i k_i e_t
+//   dk_t[i] = sum_j G_t[i][j] v_j + r_i u_i e_t
+//   dv_t[j] = sum_i G_t[i][j] k_i + c_t dy_j
+// (e_t = sum_j dy_j v_j, c_t = sum_i r_i u_i k_i)
+//   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
+//   du[i]  += r_i k_i e_t
+//   G_{t-1}[i][j] = w_i G_t[i][j] + r_i dy_j
+// and ds0 = G_0.  S_{t-1} is never recovered by dividing by the decay: the
+// forward kept the state every CK tokens (`ck`), and each chunk of CK
+// tokens, last chunk first, is recomputed forward from its checkpoint into
+// a per-row scratch (`hist`, CK states), then walked in reverse.
+//
+// Layouts: r, k, v, w as the forward reads them (strided (B, T, H, DH)
+// views, steps in `steps`); u as the forward's; dy, dr, dk, dv, dw
+// contiguous (B, T, H, DH), dy and dw float32, dr, dk, dv in r's type
+// (summed in float32, rounded once); ck (B, H, ceil(T / CK), DH, DH);
+// ds, ds0 (B, H, DH, DH); du (B, H, DH), each row's own bonus gradient
+// (the caller sums it over b for a shared bonus: no float atomics, so two
+// runs give the same bits); hist (B H, CK, DH DH) scratch.
+//
+// What bounds it on this card (roofline/kernel_model.py
+// `wkv_bwd_bound_ms`): per (row, token, i, j) the recompute of the state
+// and the reverse walk's multiply-adds (dr, dw, dk and dv partial sums,
+// G's update), ~13 flops at 67 TFLOP/s float32, against the bytes of r,
+// k, v, w, dy, the checkpoints and the five gradients (the scratch is 64
+// KB a row of DH = 64 at CK = 16, written and read back by the same
+// thread).  rwkv6-7b's training microbatch (B 2, T 256, H 64, DH 64,
+// bf16) is 1.7 GFLOP -> ~26 us against ~84 MB -> ~25 us: the two bounds
+// are close, and the recurrence is sequential in t.
+//
+// Design (a simple first version): one block a row with the forward's
+// thread geometry (an R x C tile of S and G a thread); G stays in
+// registers for the whole sequence.  A chunk's operands are staged into
+// shared memory as float32 (element loads: no alignment is asked), then
+// c_t and e_t are summed a thread a token, the states recomputed into
+// `hist` (each thread writes and reads back only its own tile, laid out
+// so a warp's accesses are contiguous), and the tokens walked in reverse:
+// the row sums (dr, dk, dw) over a row group's NJ lanes by an xor
+// butterfly, whose result is the same on every lane and every run; dv's
+// key sums go to shared memory and are added over the row groups in a
+// fixed pairwise order after the chunk, as the forward adds y.
+namespace {
+
+struct BwdArgs {
+  const void* rkv[3];  // r, k, v: float or bfloat16
+  const float* w;
+  const float* u;
+  const float* ck;
+  const float* dy;
+  const float* ds;     // may be null
+  void* d_rkv[3];      // dr, dk, dv in r's type
+  float* dw;
+  float* du;
+  float* ds0;
+  float* hist;
+  long long sB[4], sT[4];  // r, k, v, w: batch-row and token steps (elements)
+  long long u_sb;
+  int H, T;
+};
+
+template <int DH>
+struct BwdSmem {
+  float x[5][CK][DH];              // r, k, v, w, dy of the chunk's tokens
+  float dvp[CK][Geo<DH>::G][DH];   // each row group's partial dv
+  float u[DH];
+  float c[CK];                     // sum_i r_i u_i k_i
+  float e[CK];                     // sum_j dy_j v_j
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int DH, typename T>
+__global__ void __launch_bounds__(Geo<DH>::NT)
+    rwkv6_scan_bwd_kernel(const BwdArgs a) {
+  using Gm = Geo<DH>;
+  constexpr int R = Gm::R, C = Gm::C, NJ = Gm::NJ, NT = Gm::NT, G = Gm::G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int jc = tid % NJ, g = tid / NJ;
+  const long long row = blockIdx.x;
+  const long long b = row / a.H;
+  const int h = static_cast<int>(row - b * a.H);
+  const int nck = (a.T + CK - 1) / CK;
+  auto col = [&](int n) { return Gm::template col<C, NJ>(jc, n); };
+  // row (b, h)'s first element and token step in the contiguous tensors
+  const long long tok0 = (b * a.T * a.H + h) * DH;
+  const long long tstep = static_cast<long long>(a.H) * DH;
+  const T* src[3];
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+    src[x] = static_cast<const T*>(a.rkv[x]) + b * a.sB[x] +
+             static_cast<long long>(h) * DH;
+  const float* wsrc = a.w + b * a.sB[3] + static_cast<long long>(h) * DH;
+  T* dr = static_cast<T*>(a.d_rkv[0]) + tok0;
+  T* dk = static_cast<T*>(a.d_rkv[1]) + tok0;
+  T* dv = static_cast<T*>(a.d_rkv[2]) + tok0;
+  float* dw = a.dw + tok0;
+  const float* dy = a.dy + tok0;
+  float* hist = a.hist + row * CK * DH * DH;
+  if (tid < DH) sm.u[tid] = a.u[b * a.u_sb + static_cast<long long>(h) * DH +
+                                tid];
+
+  float Gt[R][C];
+  const float* ds = a.ds ? a.ds + row * DH * DH : nullptr;
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int n = 0; n < C; ++n)
+      Gt[m][n] = ds ? ds[(g * R + m) * DH + col(n)] : 0.f;
+  float du = 0.f;
+
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * CK, cnt = min(CK, a.T - t0);
+    __syncthreads();  // the previous chunk's shared data is read
+    for (int e = tid; e < cnt * DH; e += NT) {
+      const int t = e / DH, i = e - t * DH;
+      const long long tt = t0 + t;
+#pragma unroll
+      for (int x = 0; x < 3; ++x)
+        sm.x[x][t][i] = widen(src[x][tt * a.sT[x] + i]);
+      sm.x[3][t][i] = wsrc[tt * a.sT[3] + i];
+      sm.x[4][t][i] = dy[tt * tstep + i];
+    }
+    __syncthreads();  // the chunk is staged
+    if (tid < cnt) {
+      float cs = 0.f, es = 0.f;
+      for (int i = 0; i < DH; ++i) {
+        cs = fmaf(sm.x[0][tid][i], sm.u[i] * sm.x[1][tid][i], cs);
+        es = fmaf(sm.x[4][tid][i], sm.x[2][tid][i], es);
+      }
+      sm.c[tid] = cs;
+      sm.e[tid] = es;
+    }
+    {  // recompute S_{t-1} for the chunk's tokens from its checkpoint
+      float S[R][C];
+      const float* ckp = a.ck + (row * nck + c) * DH * DH;
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+#pragma unroll
+        for (int n = 0; n < C; ++n) S[m][n] = ckp[(g * R + m) * DH + col(n)];
+      for (int t = 0; t < cnt; ++t) {
+        float* ht = hist + t * DH * DH;
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+#pragma unroll
+          for (int n = 0; n < C; ++n) ht[(m * C + n) * NT + tid] = S[m][n];
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          const float wi = sm.x[3][t][g * R + m], ki = sm.x[1][t][g * R + m];
+#pragma unroll
+          for (int n = 0; n < C; ++n)
+            S[m][n] = fmaf(wi, S[m][n], ki * sm.x[2][t][col(n)]);
+        }
+      }
+    }
+    __syncthreads();  // c_t and e_t are written
+
+    for (int t = cnt - 1; t >= 0; --t) {
+      const float* ht = hist + t * DH * DH;
+      float rr[R], kk[R], ww[R], vv[C], dd[C];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        rr[m] = sm.x[0][t][g * R + m];
+        kk[m] = sm.x[1][t][g * R + m];
+        ww[m] = sm.x[3][t][g * R + m];
+      }
+#pragma unroll
+      for (int n = 0; n < C; ++n) {
+        vv[n] = sm.x[2][t][col(n)];
+        dd[n] = sm.x[4][t][col(n)];
+      }
+      float pr[R], pk[R], pw[R], pv[C];
+#pragma unroll
+      for (int m = 0; m < R; ++m) pr[m] = pk[m] = pw[m] = 0.f;
+#pragma unroll
+      for (int n = 0; n < C; ++n) pv[n] = 0.f;
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+#pragma unroll
+        for (int n = 0; n < C; ++n) {
+          const float sp = ht[(m * C + n) * NT + tid];
+          pr[m] = fmaf(dd[n], sp, pr[m]);
+          pw[m] = fmaf(Gt[m][n], sp, pw[m]);
+          pk[m] = fmaf(Gt[m][n], vv[n], pk[m]);
+          pv[n] = fmaf(Gt[m][n], kk[m], pv[n]);
+        }
+      // the row sums over the NJ lanes of the row group
+#pragma unroll
+      for (int o = 1; o < NJ; o *= 2)
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          pr[m] += __shfl_xor_sync(0xffffffffu, pr[m], o);
+          pk[m] += __shfl_xor_sync(0xffffffffu, pk[m], o);
+          pw[m] += __shfl_xor_sync(0xffffffffu, pw[m], o);
+        }
+      const float et = sm.e[t];
+      const long long at = (t0 + t) * tstep;
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        if (m == jc) {  // lane m of the group writes row g R + m
+          const int i = g * R + m;
+          dr[at + i] = narrow<T>(fmaf(sm.u[i] * kk[m], et, pr[m]));
+          dk[at + i] = narrow<T>(fmaf(rr[m] * sm.u[i], et, pk[m]));
+          dw[at + i] = pw[m];
+        }
+#pragma unroll
+      for (int n = 0; n < C; ++n) sm.dvp[t][g][col(n)] = pv[n];
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+#pragma unroll
+        for (int n = 0; n < C; ++n)
+          Gt[m][n] = fmaf(ww[m], Gt[m][n], rr[m] * dd[n]);
+    }
+    __syncthreads();  // every row group's dv partial sums are written
+    for (int e = tid; e < cnt * DH; e += NT) {
+      const int t = e / DH, j = e - t * DH;
+      float p[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) p[q] = sm.dvp[t][q][j];
+#pragma unroll
+      for (int span = 1; span < G; span *= 2)
+#pragma unroll
+        for (int q = 0; q < G; q += 2 * span) p[q] += p[q + span];
+      dv[(t0 + t) * tstep + j] = narrow<T>(fmaf(sm.c[t], sm.x[4][t][j], p[0]));
+    }
+    if (tid < DH)
+      for (int t = cnt - 1; t >= 0; --t)
+        du = fmaf(sm.x[0][t][tid] * sm.x[1][t][tid], sm.e[t], du);
+  }
+  float* so = a.ds0 + row * DH * DH;
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int n = 0; n < C; ++n) so[(g * R + m) * DH + col(n)] = Gt[m][n];
+  if (tid < DH) a.du[row * DH + tid] = du;
+}
+
+template <int DH, typename T>
+int launch_bwd(const BwdArgs& a, int BH, cudaStream_t s) {
+  constexpr int bytes = static_cast<int>(sizeof(BwdSmem<DH>));
+  const cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_scan_bwd_kernel<DH, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rwkv6_scan_bwd_kernel<DH, T><<<BH, Geo<DH>::NT, bytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_bwd(const BwdArgs& a, int BH, bool bf16, cudaStream_t s) {
+  return bf16 ? launch_bwd<DH, __nv_bfloat16>(a, BH, s)
+              : launch_bwd<DH, float>(a, BH, s);
+}
+
+}  // namespace
+
+// Plain C entry point of the backward pass, bound with ctypes.  Pointers are
+// device pointers in the layouts above; ds may be null (no gradient on the
+// final state).  `steps` is a host array of 9 element counts: sB and sT of
+// r, k, v and w in turn, then u_sb.  The caller guarantees BH = B x H >= 1,
+// H >= 1, T >= 0 and that ck holds ceil(T / CK) states a row.  Returns
+// cudaErrorInvalidValue for a DH other than 16 or 64, else the error of the
+// shared-memory attribute or of the launch, which is asynchronous on
+// `stream`.
+extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
+                              const void* w, const void* u, const void* ck,
+                              const void* dy, const void* ds, void* dr,
+                              void* dk, void* dv, void* dw, void* du,
+                              void* ds0, void* hist, const long long* steps,
+                              int BH, int H, int T, int DH, int bf16,
+                              void* stream) {
+  BwdArgs a;
+  a.rkv[0] = r;
+  a.rkv[1] = k;
+  a.rkv[2] = v;
+  a.w = static_cast<const float*>(w);
+  a.u = static_cast<const float*>(u);
+  a.ck = static_cast<const float*>(ck);
+  a.dy = static_cast<const float*>(dy);
+  a.ds = static_cast<const float*>(ds);
+  a.d_rkv[0] = dr;
+  a.d_rkv[1] = dk;
+  a.d_rkv[2] = dv;
+  a.dw = static_cast<float*>(dw);
+  a.du = static_cast<float*>(du);
+  a.ds0 = static_cast<float*>(ds0);
+  a.hist = static_cast<float*>(hist);
+  for (int x = 0; x < 4; ++x) {
+    a.sB[x] = steps[2 * x];
+    a.sT[x] = steps[2 * x + 1];
+  }
+  a.u_sb = steps[8];
+  a.H = H;
+  a.T = T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (DH) {
+    case 16: return launch_bwd<16>(a, BH, bf16 != 0, s);
+    case 64: return launch_bwd<64>(a, BH, bf16 != 0, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

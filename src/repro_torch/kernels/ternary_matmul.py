@@ -8,6 +8,12 @@ below, on a CUDA device the hand-written kernel
 (`cuda_ternary_matmul`, `csrc/ternary_matmul.cu`); nothing falls back from
 one to the other.  Both apply the scale after the sum, as the Pallas
 kernel `repro/kernels/ternary_matmul.py` and `ref.ternary_matmul_ref` do.
+
+The kernel is forward-only, as the Pallas kernel is: on a CUDA tensor
+the router raises when autograd would need a gradient through it (grad
+mode on and x or scale requiring one).  The reference trains `"dense"`
+and `"ternary"` (a dense product with a straight-through quantizer),
+never `"ternary_packed"`; serving runs under `torch.inference_mode`.
 """
 from __future__ import annotations
 
@@ -61,6 +67,13 @@ def ternary_matmul(x: torch.Tensor, w2: torch.Tensor,
     if x.device.type == "cpu":
         return ternary_matmul_plain(x, w2, scale)
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or scale.requires_grad):
+            raise RuntimeError(
+                "the ternary matmul kernel has no backward: a packed "
+                "ternary projection cannot be trained; train with "
+                "quant='ternary' (straight-through) or run under "
+                "torch.no_grad() / torch.inference_mode()")
         from repro_torch.kernels import cuda_ternary_matmul
         return cuda_ternary_matmul.launch(x, w2, scale)
     raise ValueError(f"no executor for device {x.device}")

@@ -4,9 +4,9 @@ The port of `repro.models.layers`.  Every projection supports the three
 quantization modes of the config:
 
   * "dense"          — `x @ w`;
-  * "ternary"        — the forward value of absmean ternary QAT,
-                       `x @ (codes * alpha)` (its STE gradient comes with
-                       the training slice);
+  * "ternary"        — absmean ternary QAT, `x @ ternary_ste_lm(w)`:
+                       the value `x @ (codes * alpha)`, the gradient of
+                       the dense product (straight-through);
   * "ternary_packed" — serving: 2-bit codes (four per int8 byte) and a
                        per-column scale, multiplied by
                        `kernels.ops.ternary_matmul`, which on the card is
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.ternary import ternary_quantize_lm
+from repro_torch.core.ternary import ternary_ste_lm
 from repro_torch.kernels import ops
 
 
@@ -47,8 +47,7 @@ def linear(p: dict, x: torch.Tensor, quant: str = "dense") -> torch.Tensor:
     if quant == "ternary_packed":
         y = ops.ternary_matmul(x, p["w2"], p["scale"]).to(x.dtype)
     elif quant == "ternary":
-        codes, alpha = ternary_quantize_lm(p["w"])
-        y = x @ (codes * alpha).to(x.dtype)
+        y = x @ ternary_ste_lm(p["w"]).to(x.dtype)
     elif quant == "dense":
         y = x @ p["w"].to(x.dtype)
     else:

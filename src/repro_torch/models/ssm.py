@@ -21,7 +21,9 @@ taken in float32, and so is the WKV recurrence, which goes to
 the projections' own `(B, S, H, dh)` views, with no copy: r, k and v in
 the compute dtype, the decays in float32, the `(H, dh)` bonus shared by
 the batch.  The reference runs the same recurrence as a `lax.scan` over
-the sequence.
+the sequence, which JAX differentiates; where autograd records, the port's
+scan runs as `kernels.rwkv6_scan.WKVScan`, whose backward is the
+hand-written backward kernel on the card.
 
 Both Mamba's and RWKV-6's projections are dense `w` leaves: the reference
 reads them so whatever `cfg.quant` says, and the port serves both dense

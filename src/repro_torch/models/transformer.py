@@ -20,7 +20,13 @@ copy of the whole cache per step).  The families:
     written over the first `n_vision_tokens` positions;
   * RWKV-6.
 
-Batch dict keys: tokens (B, S) int64 or int32 [+ positions (B, S), or
+Training: `loss_fn` is the reference's objective, the mean label NLL from
+`chunked_ce_loss` (the (B, S, V) logits computed S-chunk by S-chunk) plus
+`MOE_AUX_COEF` times the MoE load-balancing loss `forward` carries; with
+`cfg.remat` each layer is recomputed in the backward pass.
+
+Batch dict keys: tokens (B, S) int64 or int32 [+ labels (B, S), pad =
+-1, for the loss] [+ positions (B, S), or
 (B, 3, S) for M-RoPE] [+ vision_embeds (B, Nv, D) for a VLM] [+ enc_frames
 (B, enc_seq, D) for an encoder-decoder].  The KV cache is stored in the
 compute dtype or, with `kv_cache_dtype="float8_e4m3fn"`, in fp8 (written
@@ -31,6 +37,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
@@ -42,6 +49,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import DTYPES, check_ported, is_hybrid, \
     is_rwkv
+
+MOE_AUX_COEF = 0.01
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -117,24 +126,32 @@ def _mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["w_out"], h, cfg.quant)
 
 
-def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """A layer's aux loss where it has no MoE: a float32 zero."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor):
     """The layer's FFN on the normed input: the MLP, or the MoE (plus
-    arctic's dense residual MLP in parallel)."""
+    arctic's dense residual MLP in parallel).  Returns `(y, aux)`, aux
+    the MoE's load-balancing loss (zero without one)."""
     if cfg.moe is None:
-        return _mlp(cfg, lp["mlp"], h)
-    y, _ = MOE.moe_ffn(lp["moe"], h, n_experts=cfg.moe.n_experts,
-                       top_k=cfg.moe.top_k,
-                       capacity_factor=cfg.moe.capacity_factor)
+        return _mlp(cfg, lp["mlp"], h), _zero(h)
+    y, aux = MOE.moe_ffn(lp["moe"], h, n_experts=cfg.moe.n_experts,
+                         top_k=cfg.moe.top_k,
+                         capacity_factor=cfg.moe.capacity_factor)
     if cfg.moe.dense_residual:
         y = y + _mlp(cfg, lp["mlp"], h)
-    return y
+    return y, aux
 
 
+# Full-sequence blocks return (x, aux, cache entry), as the reference's.
 def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
     a, kv = _attn_full(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), cos, sin,
                        window=cfg.swa_window)
     x = x + a
-    return x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x)), kv
+    y, aux = _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))
+    return x + y, aux, kv
 
 
 def _block_hybrid(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
@@ -144,7 +161,7 @@ def _block_hybrid(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
     x = x + 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
                    + _norm(cfg, lp["mamba_out_norm"], m))
     x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
-    return x, (kv, mstate)
+    return x, _zero(x), (kv, mstate)
 
 
 def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
@@ -156,7 +173,7 @@ def _block_rwkv(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     x = x + tm_out
     h2 = _norm(cfg, lp["ln2"], x)
     cm_out, last_cm = SSM.rwkv6_channelmix(lp["cm"], h2, state)
-    return x + cm_out, (last_tm, last_cm, wkv)
+    return x + cm_out, _zero(x), (last_tm, last_cm, wkv)
 
 
 def _block_enc(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -179,7 +196,7 @@ def _block_dec_xattn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                                 block_k=cfg.attn_block_k)
     x = x + linear(lp["xattn"]["wo"], o.reshape(B, S, H * dh), cfg.quant)
     x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
-    return x, (kv, (xk, xv))
+    return x, _zero(x), (kv, (xk, xv))
 
 
 def _rope_for(cfg: ModelConfig, batch: dict, S: int, B: int, device):
@@ -196,12 +213,37 @@ def _rope_for(cfg: ModelConfig, batch: dict, S: int, B: int, device):
     return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
+def _stack(cfg: ModelConfig, layers: dict, n: int, x: torch.Tensor, body,
+           collect_cache: bool):
+    """`body(x, lp) -> (x, aux, entry)` over n stacked layers: the
+    reference's scan.  With `cfg.remat`, where autograd records, each
+    layer runs under `torch.utils.checkpoint` (the reference's
+    `jax.checkpoint` on the scanned body): its activations are
+    recomputed in the backward pass, which changes memory only.  Returns
+    (x, summed aux, entries | None)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux, caches = _zero(x), []
+    for i in range(n):
+        lp = _layer(layers, i)
+        if remat:
+            x, aux_l, entry = torch.utils.checkpoint.checkpoint(
+                body, x, lp, use_reentrant=False)
+        else:
+            x, aux_l, entry = body(x, lp)
+        aux = aux + aux_l
+        if collect_cache:
+            caches.append(entry)
+    return x, aux, (caches if collect_cache else None)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             collect_cache: bool = False):
-    """Full-sequence forward.  Returns (hidden (B, S, D), caches | None),
-    caches being each layer's (k, v), each (B, S, K, dh); for the hybrid
-    ((k, v), MambaState), for the encoder-decoder ((k, v), (xk, xv)), for
-    RWKV-6 (last time-mix input, last channel-mix input, WKV state)."""
+    """Full-sequence forward.  Returns (hidden (B, S, D), aux, caches |
+    None): aux the layers' summed MoE load-balancing loss (a float32
+    scalar, 0 without MoE), caches each layer's (k, v), each (B, S, K,
+    dh); for the hybrid ((k, v), MambaState), for the encoder-decoder
+    ((k, v), (xk, xv)), for RWKV-6 (last time-mix input, last channel-mix
+    input, WKV state)."""
     check_ported(cfg)
     comp = _cdt(cfg)
     tokens = batch["tokens"]
@@ -222,8 +264,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         if cfg.enc_layers:
             enc = batch["enc_frames"].to(comp) \
                 + params["enc_pos"][None].to(comp)
-            for i in range(cfg.enc_layers):
-                enc = _block_enc(cfg, _layer(params["enc_layers"], i), enc)
+            enc, _, _ = _stack(
+                cfg, params["enc_layers"], cfg.enc_layers, enc,
+                lambda xx, lp: (_block_enc(cfg, lp, xx), _zero(xx), None),
+                False)
             enc_out = _norm(cfg, params["enc_final_norm"], enc)
             x = x + params["dec_pos"][:S][None].to(comp)
 
@@ -235,13 +279,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         else:
             def body(xx, lp):
                 return _block_dense(cfg, lp, xx, cos, sin)
-    caches = []
-    for i in range(cfg.n_layers):
-        x, entry = body(x, _layer(params["layers"], i))
-        if collect_cache:
-            caches.append(entry)
+    x, aux, caches = _stack(cfg, params["layers"], cfg.n_layers, x, body,
+                            collect_cache)
     x = _norm(cfg, params["final_norm"], x)
-    return x, (caches if collect_cache else None)
+    return x, aux, caches
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
@@ -252,6 +293,55 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
     if cfg.tie_embeddings:
         return x.float() @ params["embed"]["tokens"].float().T
     return linear(params["lm_head"], x.float(), "dense")
+
+
+def _ce_chunk(cfg: ModelConfig, params: dict, xc: torch.Tensor,
+              lc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (sum of label NLL, label count): f32 logits, logZ by
+    `logsumexp`, labels < 0 masked out."""
+    logits = logits_from_hidden(cfg, params, xc)             # (B, Sc, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).to(torch.float32)
+    return ((logz - ll) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    labels: torch.Tensor, n_chunks: int = 8
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over S chunks, so the (B, S, V) logits never exist
+    at once: `n_chunks` lowered until it divides S, as the reference
+    lowers it, each chunk's logits in f32.  With `cfg.remat`, where
+    autograd records, each chunk runs under `torch.utils.checkpoint`, so
+    the backward pass too holds one chunk's logits at a time.  Returns
+    (sum of NLL over labels >= 0, their count), both f32 scalars."""
+    B, S, _ = x.shape
+    n_chunks = max(1, min(n_chunks, S))
+    while S % n_chunks:
+        n_chunks -= 1
+    Sc = S // n_chunks
+    remat = cfg.remat and torch.is_grad_enabled()
+    nll = n_tok = _zero(x)
+    for c in range(n_chunks):
+        xc, lc = x[:, c * Sc:(c + 1) * Sc], labels[:, c * Sc:(c + 1) * Sc]
+        if remat:
+            part, cnt = torch.utils.checkpoint.checkpoint(
+                _ce_chunk, cfg, params, xc, lc, use_reentrant=False)
+        else:
+            part, cnt = _ce_chunk(cfg, params, xc, lc)
+        nll, n_tok = nll + part, n_tok + cnt
+    return nll, n_tok
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Scalar LM loss and metrics (the train step's objective): the mean
+    label NLL plus `MOE_AUX_COEF` times the summed MoE aux loss.  Returns
+    (loss, {"loss", "nll", "tokens", "moe_aux"})."""
+    x, aux, _ = forward(cfg, params, batch)
+    nll, n_tok = chunked_ce_loss(cfg, params, x, batch["labels"])
+    loss = nll / torch.clamp(n_tok, min=1.0) + MOE_AUX_COEF * aux
+    return loss, {"loss": loss, "nll": nll, "tokens": n_tok, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +437,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             st = SSM.RWKVState(cache["shift_tm"][i], cache["shift_cm"][i],
                                cache["wkv"][i])
             # the WKV state is updated in place; the token shifts copied
-            x, (last_tm, last_cm, _) = _block_rwkv(
+            x, _, (last_tm, last_cm, _) = _block_rwkv(
                 cfg, _layer(params["layers"], i), x, st, wkv_out=st.wkv)
             cache["shift_tm"][i] = last_tm
             cache["shift_cm"][i] = last_cm
@@ -392,7 +482,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                       all_enc)
             x = x + linear(lp["xattn"]["wo"], xo.reshape(B, 1, H * dh),
                            cfg.quant)
-        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))
+        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))[0]
     x = _norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), cache
 
@@ -404,7 +494,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     K/V cast to the KV dtype.  For SWA archs requires S % window == 0 when
     S exceeds the window (slot order == position order).
     """
-    x, caches = forward(cfg, params, batch, collect_cache=True)
+    x, _, caches = forward(cfg, params, batch, collect_cache=True)
     if is_rwkv(cfg):
         return x, {name: torch.stack([c[n] for c in caches]).contiguous()
                    for n, name in enumerate(SSM.RWKVState._fields)}

@@ -1,4 +1,4 @@
-"""AdamW with warmup-cosine schedule, over dicts of tensors.
+"""AdamW with warmup-cosine schedule, over nested dicts of tensors.
 
 The port of `repro.optim.adamw`, with the reference's order of operations:
 the global-norm clip (epsilon 1e-9) first, then the moments, the bias
@@ -11,6 +11,11 @@ the host.  Every quotient divides by a tensor on that device: PyTorch
 computes `scalar / tensor` as `tensor.reciprocal() * scalar`, and on CUDA
 `tensor / python_float` as a product with the reciprocal, and either
 rounds differently from the reference's division.
+
+Parameters, gradients and moments are nested dicts of tensors (a TNN's
+flat `{"w1", "w2"}`, an LM's parameter tree); `tree_leaves` and
+`tree_map` walk them in the reference's leaf order, sorted keys at each
+level, as `jax.tree.leaves` orders a dict.
 """
 from __future__ import annotations
 
@@ -23,8 +28,23 @@ import torch
 
 class AdamWState(NamedTuple):
     step: torch.Tensor                 # scalar int32
-    mu: dict[str, torch.Tensor]        # first moment, like params
-    nu: dict[str, torch.Tensor]        # second moment, like params
+    mu: dict                           # first moment, like params
+    nu: dict                           # second moment, like params
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves of a nested dict in sorted-key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """`fn` over the leaves of `tree` and of the like-shaped `rest`."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
 @dataclass(frozen=True)
@@ -64,57 +84,65 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return lr * warm * decay
 
 
-def init(params: dict[str, torch.Tensor]) -> AdamWState:
-    dev = next(iter(params.values())).device
-    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
-             for k, p in params.items()}
+def init(params: dict) -> AdamWState:
+    dev = tree_leaves(params)[0].device
+    mu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
+                      mu=mu, nu=tree_map(torch.clone, mu))
 
 
 def state_from_arrays(step, mu: dict, nu: dict, device) -> AdamWState:
     """An `AdamWState` from the reference's state as numpy arrays (the
-    step count and dicts of moments), placed on `device`."""
+    step count and nested dicts of moments), placed on `device`."""
     def on(a):
         return torch.as_tensor(a).to(device=device, dtype=torch.float32)
 
     return AdamWState(
         step=torch.as_tensor(step).to(device=device, dtype=torch.int32),
-        mu={k: on(v) for k, v in mu.items()},
-        nu={k: on(v) for k, v in nu.items()})
+        mu=tree_map(on, mu), nu=tree_map(on, nu))
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares over the leaves, in the reference's leaf
     order (sorted keys, as `jax.tree.leaves` orders a dict)."""
     total = 0
-    for k in sorted(tree):
-        total = total + torch.sum(torch.square(tree[k].to(torch.float32)))
+    for g in tree_leaves(tree):
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
     return torch.sqrt(total)
 
 
-def apply_updates(params: dict[str, torch.Tensor],
-                  grads: dict[str, torch.Tensor], state: AdamWState,
-                  cfg: AdamWConfig
-                  ) -> tuple[dict[str, torch.Tensor], AdamWState]:
-    """One AdamW step.  Returns (new_params, new_state)."""
-    step = state.step + 1
-    if cfg.grad_clip is not None:
-        gnorm = global_norm(grads)
-        scale = torch.clamp(_f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9),
-                            max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
+def clip_scale(cfg: AdamWConfig, grads: dict) -> torch.Tensor | None:
+    """The global-norm clip's factor `min(1, clip / (norm + 1e-9))`, or
+    None without a clip."""
+    if cfg.grad_clip is None:
+        return None
+    gnorm = global_norm(grads)
+    return torch.clamp(_f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9), max=1.0)
 
-    b1, b2 = cfg.b1, cfg.b2
-    mu = {k: b1 * state.mu[k] + (1 - b1) * grads[k].to(torch.float32)
-          for k in params}
-    nu = {k: b2 * state.nu[k]
-          + (1 - b2) * torch.square(grads[k].to(torch.float32))
-          for k in params}
+
+def bias_scales(cfg: AdamWConfig, step: torch.Tensor):
+    """`1 / (1 - b1 ** step)` and `1 / (1 - b2 ** step)` in float32."""
     stepf = step.to(torch.float32)
     one = _f32(1.0, stepf)
-    mu_hat_scale = one / (1.0 - torch.pow(_f32(b1, stepf), stepf))
-    nu_hat_scale = one / (1.0 - torch.pow(_f32(b2, stepf), stepf))
+    return (one / (1.0 - torch.pow(_f32(cfg.b1, stepf), stepf)),
+            one / (1.0 - torch.pow(_f32(cfg.b2, stepf), stepf)))
+
+
+def apply_updates(params: dict, grads: dict, state: AdamWState,
+                  cfg: AdamWConfig) -> tuple[dict, AdamWState]:
+    """One AdamW step.  Returns (new_params, new_state)."""
+    step = state.step + 1
+    scale = clip_scale(cfg, grads)
+    if scale is not None:
+        grads = tree_map(lambda g: g * scale, grads)
+
+    b1, b2 = cfg.b1, cfg.b2
+    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
+                  state.mu, grads)
+    nu = tree_map(lambda v, g: b2 * v
+                  + (1 - b2) * torch.square(g.to(torch.float32)),
+                  state.nu, grads)
+    mu_hat_scale, nu_hat_scale = bias_scales(cfg, step)
     lr = schedule(cfg, state.step)
 
     def upd(p, m, v):
@@ -123,5 +151,5 @@ def apply_updates(params: dict[str, torch.Tensor],
             u = u + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * u).to(p.dtype)
 
-    new_params = {k: upd(p, mu[k], nu[k]) for k, p in params.items()}
+    new_params = tree_map(upd, params, mu, nu)
     return new_params, AdamWState(step=step, mu=mu, nu=nu)

@@ -16,7 +16,7 @@ Peaks (NVIDIA H100 SXM data sheet):
   * `BF16_FLOP_PER_S`   989e12 dense bf16 tensor-core FLOP/s (the ternary
     matmul);
   * `F32_FLOP_PER_S`    67e12 f32 FLOP/s on the CUDA cores (the WKV-6
-    scan);
+    scan and its backward, `wkv_bound_ms` and `wkv_bwd_bound_ms`);
   * the chain: `CHAIN_CYCLES_PER_LEVEL` SM cycles a logic level (one
     shared-memory round trip and one barrier) at the card's highest SM
     clock, `DEFAULT_SM_CLOCK_MHZ` unless the caller reads it
@@ -54,6 +54,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch.kernels.rwkv6_scan import n_checkpoints
+
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -65,6 +67,10 @@ POPCOUNT_OPS_PER_WORD = 2      # one popc and one add a word
 # The factored WKV-6 recurrence's flops per (row, token, i, j): y's r*S
 # and +, the update's w*S, k*v and +.
 WKV_FLOPS = 5
+# the WKV-6 backward's reverse walk per (row, token, i, j): the multiply-
+# adds of dr, dw, dk and dv's partial sums; the recompute of the states
+# from the checkpoints is counted as the forward's WKV_FLOPS beside it
+WKV_BWD_FLOPS = 8
 _WORD = 4                      # uint32 words, int32 plan entries and outputs
 _ANF_MASK_BYTES = 4 * 4        # the plain walk's four int32 masks a gate
 
@@ -265,6 +271,27 @@ def wkv_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
         + 4 * BH * dh * dh * (2 if with_s0 else 1)
     rl = Roofline(float(n_bytes), float(WKV_FLOPS * BH * T * dh * dh),
                   F32_FLOP_PER_S)
+    return rl.bound_ms, rl.dominant
+
+
+def wkv_bwd_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
+                     with_ds: bool, x_bytes: int = 4,
+                     u_rows: int | None = None) -> tuple[float, str]:
+    """Least time for the WKV-6 backward: r, k, v (`x_bytes` an element),
+    w and dy (float32), the checkpointed states a row (`rwkv6_scan.
+    n_checkpoints`),
+    u and, `with_ds`, the final state's gradient read once; dr, dk, dv
+    (`x_bytes`), dw, du (`u_rows` rows of dh, BH by default) and,
+    `with_s0`, ds0 written once.  Operations: the forward recompute
+    (`WKV_FLOPS`) plus `WKV_BWD_FLOPS` per (row, token, i, j) at the
+    float32 CUDA-core rate."""
+    states = n_checkpoints(T) + int(with_ds) + int(with_s0)
+    n_bytes = (3 * x_bytes + 4 + 4) * BH * T * dh \
+        + (3 * x_bytes + 4) * BH * T * dh \
+        + 2 * 4 * dh * (BH if u_rows is None else u_rows) \
+        + 4 * BH * dh * dh * states
+    flops = (WKV_FLOPS + WKV_BWD_FLOPS) * BH * T * dh * dh
+    rl = Roofline(float(n_bytes), float(flops), F32_FLOP_PER_S)
     return rl.bound_ms, rl.dominant
 
 

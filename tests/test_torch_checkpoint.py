@@ -14,6 +14,7 @@
   with the previous step loaded instead.
 """
 import os
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -82,8 +83,25 @@ def _as_f32(x):
 # ---------------------------------------------------------------------------
 # leaf order and paths, MessagePack
 # ---------------------------------------------------------------------------
+class _State(NamedTuple):
+    """An optimizer state's shape: JAX names a NamedTuple's children by
+    field (`.mu`), in field order, not sorted."""
+    step: object
+    nu: object
+    mu: object
+
+
+class _Q8(NamedTuple):
+    codes: object
+    scales: object
+
+
 TREES = [
     _search_state(),
+    {"opt": _State(np.int32(3), {"b": np.ones(2), "a": np.zeros(2)},
+                   {"a": _Q8(np.zeros(2, np.int8), np.ones(1)),
+                    "b": _Q8(np.ones(3, np.int8), np.ones(1))}),
+     "params": {"a": np.zeros(2), "b": np.ones(2)}},
     {"b": (5, [6, {"q": 7, "a": 8}]), "a": None, "c": [], "d": {}},
     {"n": {2: 1, 1: 3, 10: 4}, "z": [[1, [2, (3,)]], None, 4]},
     [np.zeros(3), {"y": 1.0, "x": (None, 2)}],
@@ -102,6 +120,8 @@ def test_flatten_order_and_paths_equal_jax(i):
         jax.tree_util.tree_structure(tree), list(range(len(flat))))
     assert TU.leaf_paths(rebuilt) == TU.leaf_paths(want)
     assert TU.leaves(rebuilt) == TU.leaves(want)
+    assert jax.tree_util.tree_structure(rebuilt) == \
+        jax.tree_util.tree_structure(want)       # NamedTuples rebuilt as such
 
 
 def _campaign_manifest():
@@ -294,3 +314,91 @@ def test_restore_without_device_needs_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cm.restore(_search_state())
     cm.restore(_search_state(), to_device=False)     # the host needs none
+
+
+# ---------------------------------------------------------------------------
+# Trainer checkpoints across frameworks: params and an optimizer state
+# (AdamWState, or AdamW8bitState of Q8Tensors) under `.step` / `.mu` /
+# `.nu` paths, written by one framework's Trainer, restored by the other's
+# manager bit for bit
+# ---------------------------------------------------------------------------
+def _loop_cfgs(total):
+    from repro.optim.adamw import AdamWConfig as RCfg
+    from repro.train.loop import TrainLoopConfig as RLoop
+    from repro_torch.optim.adamw import AdamWConfig as PCfg
+    from repro_torch.train.loop import TrainLoopConfig as PLoop
+    return (RLoop(total_steps=total, ckpt_every=total,
+                  optimizer=RCfg(lr=1e-3)),
+            PLoop(total_steps=total, ckpt_every=total,
+                  optimizer=PCfg(lr=1e-3)))
+
+
+def _opt_modules(opt8):
+    from repro.optim import adamw as RA, adamw8bit as R8
+    from repro_torch.optim import adamw as PA, adamw8bit as P8
+    return (R8, P8) if opt8 else (RA, PA)
+
+
+@pytest.mark.parametrize("opt8", [False, True], ids=["adamw", "adamw8bit"])
+def test_reference_trainer_checkpoint_restores_in_the_port(tmp_path, opt8):
+    from repro.configs import get_config as ref_config
+    from repro.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro.models.params import init_params as ref_init
+    from repro.train.loop import Trainer as RefTrainer
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    rcfg = ref_config("llama3.2-1b").reduced().replace(opt_8bit=opt8)
+    R, Pm = _opt_modules(opt8)
+    rloop, _ = _loop_cfgs(1)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=rcfg.vocab, seq_len=8,
+                                             global_batch=2))
+    rp = ref_init(jax.random.PRNGKey(0), rcfg)
+    rp, ropt, _ = RefTrainer(rcfg, rloop, pipe, str(tmp_path)).run(
+        rp, R.init(rp), log=lambda m: None)
+    cfg = get_config("llama3.2-1b").reduced().replace(opt_8bit=opt8)
+    p0 = init_params(cfg, 1, CPU)
+    step, state, extra = CheckpointManager(str(tmp_path)).restore(
+        {"params": p0, "opt": Pm.init(p0)}, device=CPU)
+    assert step == 1 and "loss" in extra
+    assert isinstance(state["opt"], Pm.AdamW8bitState if opt8
+                      else Pm.AdamWState)
+    want = jax.tree.leaves({"params": rp, "opt": ropt})
+    got = TU.leaves(state)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(state["opt"].step) == 1
+    if opt8:
+        assert isinstance(tree_leaves(state["opt"].mu)[0], Pm.Q8Tensor)
+
+
+@pytest.mark.parametrize("opt8", [False, True], ids=["adamw", "adamw8bit"])
+def test_port_trainer_checkpoint_restores_in_the_reference(tmp_path, opt8):
+    from repro.configs import get_config as ref_config
+    from repro.models.params import init_params as ref_init
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.train.loop import Trainer
+
+    cfg = get_config("llama3.2-1b").reduced().replace(opt_8bit=opt8)
+    R, Pm = _opt_modules(opt8)
+    _, loop = _loop_cfgs(2)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=8,
+                                             global_batch=2), device=CPU)
+    p = init_params(cfg, 0, CPU)
+    p, opt, _ = Trainer(cfg, loop, pipe, str(tmp_path), device=CPU).run(
+        p, Pm.init(p), log=lambda m: None)
+    rcfg = ref_config("llama3.2-1b").reduced().replace(opt_8bit=opt8)
+    rp0 = ref_init(jax.random.PRNGKey(1), rcfg)
+    step, state, _ = RefManager(str(tmp_path)).restore(
+        {"params": rp0, "opt": R.init(rp0)})
+    assert step == 2 and isinstance(state["opt"], R.AdamWState if not opt8
+                                    else R.AdamW8bitState)
+    want = TU.leaves({"params": p, "opt": opt})
+    got = jax.tree.leaves(state)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy())

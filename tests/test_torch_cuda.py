@@ -992,3 +992,110 @@ def test_autopilot_rounds_on_card(cuda, phase_entry, tmp_path):
         outcomes = pilot.run()
         assert [o["event"] for o in outcomes] == ["rolled_back", "promoted"]
         assert fleet.errors == []
+
+
+# ---------------------------------------------------------------------------
+# LM training: the WKV-6 backward kernel, autograd, one train step
+# ---------------------------------------------------------------------------
+def _bwd_reverse(args, dy, ds, fn):
+    """The float64 forward (checkpoints) and reverse recurrence of `fn`
+    applied to every operand (identity, or abs for the envelope)."""
+    r = args[0]
+    B, T, H, dh = r.shape
+    xs = [None if a is None else fn(a.double()) for a in args]
+    ck = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh),
+                     dtype=torch.float64, device=r.device)
+    WKV.rwkv6_scan_plain(*xs, ckpt=ck)
+    return WKV.rwkv6_scan_bwd_plain(*xs[:5], ck, fn(dy.double()),
+                                    None if ds is None else fn(ds.double()))
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,H,dh", [(2, 256, 8, 64), (3, 13, 5, 64),
+                                      (4, 33, 4, 16), (1, 1, 2, 16)])
+def test_rwkv6_scan_bwd_kernel_inside_f32_envelope(cuda, B, T, H, dh, dtype,
+                                                   state):
+    """The backward kernel, from its forward instance's checkpoints, on
+    the model's strided views (decays down to 1e-12), with and without s0
+    and a state gradient: every gradient inside eps (dh + 2T + 4) times
+    the reverse recurrence on absolute values, plus one bf16 rounding of
+    dr, dk, dv; two launches bit-identical."""
+    rng = np.random.default_rng(B * T + dh)
+    args = _model_layout(cuda, rng, B, T, H, dh, dtype, int(state))
+    s0 = ds = None
+    if state:
+        s0, ds = (torch.from_numpy(rng.standard_normal((B, H, dh, dh))
+                                   .astype(np.float32)).to(cuda)
+                  for _ in range(2))
+    dy = torch.from_numpy(rng.standard_normal((B, T, H, dh))
+                          .astype(np.float32)).to(cuda)
+    ck = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh), device=cuda)
+    CW.launch(*args, s0, ckpt=ck)
+    before = CW.LAUNCHES["rwkv6_scan_bwd"]
+    got = CW.launch_bwd(*args, ck, dy, ds)
+    again = CW.launch_bwd(*args, ck, dy, ds)
+    assert CW.LAUNCHES["rwkv6_scan_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exact = _bwd_reverse((*args, s0), dy, ds, lambda a: a)
+    env = _bwd_reverse((*args, s0), dy, ds, torch.abs)
+    gamma = float(np.finfo(np.float32).eps) * (dh + 2 * T + 4)
+    for g, e, m in zip(got, exact, env):
+        bound = gamma * m
+        if g.dtype == torch.bfloat16:
+            bound = bound * (1 + 2.0 ** -8) + 2.0 ** -8 * e.abs()
+        assert ((g.double() - e).abs() <= bound).all()
+
+
+def test_rwkv6_scan_under_autograd_launches_the_backward_kernel(cuda):
+    rng = np.random.default_rng(3)
+    r, k, v, w, u = (a.detach().clone().requires_grad_() for a in
+                     _model_layout(cuda, rng, 2, 40, 3, 64, torch.bfloat16))
+    CW.reset_launches()
+    y, _ = WKV.rwkv6_scan(r, k, v, w, u)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad(y.sum(), (r, k, v, w, u))
+    assert CW.LAUNCHES == {"rwkv6_scan": 1, "rwkv6_scan_bwd": 1}
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    assert grads[0].dtype == torch.bfloat16 and grads[4].shape == (3, 64)
+
+
+def test_ternary_matmul_refuses_autograd(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    w2 = torch.zeros(16, 8, dtype=torch.int8, device=cuda)
+    sc = torch.ones(1, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TM.ternary_matmul(x, w2, sc)
+    with torch.no_grad():
+        assert TM.ternary_matmul(x, w2, sc).shape == (4, 8)
+
+
+@pytest.mark.parametrize("arch,quant", [("rwkv6-7b", "dense"),
+                                        ("llama3.2-1b", "ternary")])
+def test_one_train_step_on_the_card_equals_the_cpu(cuda, arch, quant):
+    """One train step card against CPU in float32 from the same weights
+    and stream: loss within 1e-4, gradients within 1e-3 of the largest
+    (f32 sums in another order), the WKV kernels launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import grads_of
+
+    cfg = get_config(arch).reduced().replace(quant=quant, remat=True)
+    p_cpu = init_params(cfg, 0, "cpu")
+    p_card = tree_map(lambda a: a.to(cuda), p_cpu)
+    pcfg = TokenPipelineConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    b_cpu = TokenPipeline(pcfg, device="cpu").batch_at(2)
+    b_card = TokenPipeline(pcfg, device=cuda).batch_at(2)
+    assert all(torch.equal(b_cpu[n], b_card[n].cpu()) for n in b_cpu)
+    CW.reset_launches()
+    g_card, m_card = grads_of(cfg, p_card, b_card)
+    g_cpu, m_cpu = grads_of(cfg, p_cpu, b_cpu)
+    if arch == "rwkv6-7b":          # forward and remat recompute, backward
+        assert CW.LAUNCHES == {"rwkv6_scan": 2 * cfg.n_layers,
+                               "rwkv6_scan_bwd": cfg.n_layers}
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-4
+    gmax = max(float(g.abs().max()) for g in tree_leaves(g_cpu))
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * gmax

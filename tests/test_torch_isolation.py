@@ -18,6 +18,9 @@
   (`repro_torch.checkpoint`, `evolve`, `compile.zoo`, `autopilot`: a
   checkpointed TNN campaign resumed, a zoo entry built, an autopilot
   round journaled), which loads neither `msgpack` nor `ml_dtypes`; nor
+  does LM training (`repro_torch.train`, `data.tokens`,
+  `optim.adamw8bit`, `optim.grad_compress`, `launch.train` and
+  `examples_torch/train_lm.py` taking a few reduced steps); nor
   does the port's harness (`python -m benchmarks_torch.run --only fig4
   --device cpu` at a cut budget), which loads no `benchmarks` module
   either.
@@ -397,6 +400,78 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         serve_cli.main(["replay", "--emit-dir", str(EMIT_DIR),
                         "--replay", "cardio", "--readings", "4"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_loads_neither_jax_nor_repro(tmp_path):
+    script = f"""
+import contextlib, io, json, runpy, sys
+sys.path.insert(0, {str(ROOT / 'src')!r})
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+from repro_torch.launch import train as launch_train
+from repro_torch.models.params import init_params
+from repro_torch.optim import adamw8bit
+from repro_torch.optim.grad_compress import init_error_buffer
+from repro_torch.train.loop import Trainer, TrainLoopConfig
+cfg = get_config("rwkv6-7b").reduced().replace(opt_8bit=True)
+pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=8,
+                                         global_batch=2), device="cpu")
+tr = Trainer(cfg, TrainLoopConfig(total_steps=2, ckpt_every=2,
+                                  grad_compress=True),
+             pipe, {str(tmp_path / 'ck')!r}, device="cpu")
+p = init_params(cfg, 0, "cpu")
+_, opt, res = tr.run(p, adamw8bit.init(p), err_buf=init_error_buffer(p),
+                     log=lambda m: None)
+ok = res["last_step"] == 2 and int(opt.step) == 2
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    out = launch_train.main(["--preset", "lm100m", "--steps", "1",
+                             "--batch", "1", "--seq", "8", "--device",
+                             "cpu", "--ckpt-dir", {str(tmp_path / 'cli')!r}])
+ok &= out["steps"] == 1
+sys.argv = ["train_lm.py", "--steps", "1", "--batch", "1", "--seq", "8",
+            "--device", "cpu", "--ckpt-dir", {str(tmp_path / 'ex')!r}]
+with contextlib.redirect_stdout(buf):
+    runpy.run_path({str(ROOT / 'examples_torch' / 'train_lm.py')!r},
+                   run_name="__main__")
+ok &= '"steps": 1' in buf.getvalue().splitlines()[-1]
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "msgpack", "ml_dtypes")
+             or m.startswith(("jax.", "repro.", "msgpack.", "ml_dtypes.")))
+print(json.dumps({{"ok": bool(ok), "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=180, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
+def test_training_entry_points_without_device_need_cuda(monkeypatch,
+                                                        tmp_path):
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import Trainer, TrainLoopConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3.2-1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TokenPipeline(TokenPipelineConfig(vocab=8, seq_len=4,
+                                          global_batch=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainLoopConfig(), None, str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "llama3.2-1b", "--reduced",
+                           "--ckpt-dir", str(tmp_path)])
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    for script in ("train_lm.py", "serve_lm.py"):
+        out = subprocess.run([sys.executable,
+                              str(ROOT / "examples_torch" / script)],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=str(ROOT), env=env)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 def test_harness_loads_neither_jax_nor_repro_nor_benchmarks():

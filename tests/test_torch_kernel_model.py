@@ -105,6 +105,31 @@ def test_wkv_bound_matches_perf_table(args, kw, want_us):
     assert by == "bytes" and _printed(ms * 1e3, want_us)
 
 
+def test_wkv_bwd_bound_counts_its_bytes_and_operations():
+    """The backward's bound: r, k, v (bf16 here), w, dy read and dr, dk,
+    dv, dw written a (row, token, i) element, the checkpoints, u and du,
+    and the state gradients where asked; the forward recompute plus the
+    reverse walk's flops at the f32 CUDA-core rate.  rwkv6-7b's training
+    microbatch (B 2 x H 64 rows, T 256, dh 64, bf16, a shared bonus) is
+    bound by its operations, ~26 us (`PERF.md` section 6, row 6
+    backward)."""
+    BH, T, dh = 128, 256, 64
+    ms, by = KM.wkv_bwd_bound_ms(BH, T, dh, False, False, 2, 64)
+    flops = (KM.WKV_FLOPS + KM.WKV_BWD_FLOPS) * BH * T * dh * dh
+    assert by == "operations" and ms == pytest.approx(
+        flops / KM.F32_FLOP_PER_S * 1e3)
+    assert _printed(ms * 1e3, 26.0)
+    n_bytes = (6 + 8) * BH * T * dh + (6 + 4) * BH * T * dh \
+        + 2 * 4 * dh * 64 + 4 * BH * dh * dh * (T // 16)
+    bytes_ms = n_bytes / KM.HBM_BYTES_PER_S * 1e3
+    assert bytes_ms < ms
+    # a state gradient and an initial state add one state a row each way
+    ms2, _ = KM.wkv_bwd_bound_ms(1, 1, 4096, True, True)
+    ms1, by1 = KM.wkv_bwd_bound_ms(1, 1, 4096, False, False)
+    assert by1 == "bytes" and ms2 - ms1 == pytest.approx(
+        2 * 4 * 4096 * 4096 / KM.HBM_BYTES_PER_S * 1e3)
+
+
 @pytest.mark.parametrize("B,W,want_us", [(65536, 9, 0.78),
                                          (65536, 32, 2.58),
                                          (4194304, 9, 50.1)])

@@ -52,7 +52,8 @@ def test_forward_prefill_decode_match_reference():
     tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, 7))
 
     with torch.inference_mode():
-        h, caches = TF.forward(cfg, tp, {"tokens": torch.from_numpy(tokens)})
+        h, _, caches = TF.forward(cfg, tp,
+                                  {"tokens": torch.from_numpy(tokens)})
     rh, _, _ = RTF.forward(cfg, rp, {"tokens": jnp.asarray(tokens,
                                                             jnp.int32)})
     assert caches is None

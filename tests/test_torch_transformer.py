@@ -100,7 +100,7 @@ def test_forward_prefill_decode_match_reference(quant):
     tokens = rng.integers(0, cfg.vocab, (B, S))
 
     with torch.inference_mode():
-        h, _ = TF.forward(cfg, tp, {"tokens": torch.from_numpy(tokens)})
+        h, _, _ = TF.forward(cfg, tp, {"tokens": torch.from_numpy(tokens)})
     rh, _, _ = RTF.forward(cfg, rp, {"tokens": jnp.asarray(tokens,
                                                             jnp.int32)})
     _close(h, rh)

@@ -110,7 +110,7 @@ def check_model(arch: str, quant: str, *, B: int = 2, S: int = 8,
     batch = numpy_batch(cfg, B, S, seed + 1)
 
     with torch.inference_mode():
-        h, _ = TF.forward(cfg, tp, to_port(batch))
+        h, _, _ = TF.forward(cfg, tp, to_port(batch))
     rh, _, _ = RTF.forward(rcfg, rp, to_ref(batch))
     close(h, rh)
 

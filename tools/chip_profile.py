@@ -55,9 +55,10 @@ REPS = 15
 PROFILED_DISPATCHES = 10
 PROFILER_OWN = {"Activity Buffer Request"}   # the profiler's own bookkeeping
 # the ternary matmul's three designs (split-K decode, tensor-core prefill,
-# CUDA-core f32) and the WKV-6 scan
+# CUDA-core f32), the WKV-6 scan and its backward
 KERNELS = ("ternary_splitk_kernel", "ternary_mma_kernel",
-           "ternary_matmul_kernel", "rwkv6_scan_kernel")
+           "ternary_matmul_kernel", "rwkv6_scan_kernel",
+           "rwkv6_scan_bwd_kernel")
 
 
 def median_ms(fn, reps: int = REPS) -> float:
