@@ -5,11 +5,11 @@ Prints ``name,us_per_call,derived`` CSV rows: `name` is bench/row id,
 a compact JSON payload with the row's metrics.  The port of
 `benchmarks/run.py`: every bench runs on `--device` (default: the current
 CUDA device, which raises without one; `cpu` runs the plain PyTorch
-versions).  `roofline` (`benchmarks/roofline_bench.py`) needs the LM
-dry-run launcher, which the port does not have yet (ROADMAP Queue 1
-item 4); asking for it exits 2.  On the card, the gate walk's launches
-in this process (by kernel and by design; spawned workers count their
-own) go to standard error as one JSON line at the end.
+versions).  `roofline` reads `reports/dryrun_torch.jsonl`, the records
+`python -m repro_torch.launch.dryrun` writes (a row saying so when it is
+missing), and runs nothing on the device.  On the card, the gate walk's
+launches in this process (by kernel and by design; spawned workers count
+their own) go to standard error as one JSON line at the end.
 
 Env: REPRO_BENCH_FULL=1 switches from quick budgets to paper-scale budgets.
 Usage: PYTHONPATH=src python -m benchmarks_torch.run [--only table2,fig4,...]
@@ -31,15 +31,13 @@ BENCH_MODULES = {
     "fig8": "benchmarks_torch.fig8_nsga2",
     "table3": "benchmarks_torch.table3_sota",
     "variation": "benchmarks_torch.variation_robustness",
+    "roofline": "benchmarks_torch.roofline_bench",
     "cgp": "benchmarks_torch.cgp_throughput",
     "serve": "benchmarks_torch.serve_throughput",
     "evolve": "benchmarks_torch.evolve_campaign",
     "autopilot": "benchmarks_torch.autopilot_loop",
 }
 BENCHES = list(BENCH_MODULES)
-NOT_PORTED = {"roofline": "benchmarks/roofline_bench.py needs the LM "
-                          "dry-run launcher (repro.launch.dryrun), which the "
-                          "port does not have yet: ROADMAP.md Queue 1 item 4"}
 
 
 def _load(name: str):
@@ -55,11 +53,6 @@ def main(argv=None) -> None:
                     help="cuda (default: the current CUDA device) or cpu")
     args = ap.parse_args(argv)
     names = [n.strip() for n in args.only.split(",")] if args.only else BENCHES
-    waiting = [n for n in names if n in NOT_PORTED]
-    if waiting:
-        print("; ".join(f"{n}: {NOT_PORTED[n]}" for n in waiting),
-              file=sys.stderr)
-        raise SystemExit(2)
     unknown = [n for n in names if n not in BENCH_MODULES]
     if unknown:
         raise SystemExit(

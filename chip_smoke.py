@@ -274,6 +274,33 @@ package) and prints one JSON object per phase:
      in a process of its own.  Every run's losses finite, the last below
      the first; printed: tokens/s, step p50, peak memory, checkpoint save
      and restore seconds;
+  6d. `roofline` — the step roofline of the cells `training` and
+     `lm_serving` ran, costed by a meta trace of the same step
+     (`roofline.component_costing.cost_cell`, components x trips, and
+     `launch.dryrun.trace_step`, the whole step's peak): rwkv6-7b cut to
+     4 layers (4 x 256 in 2 microbatches, int8 moments, compression,
+     remat) and llama3.2-1b in ternary QAT (8 x 256, f32 AdamW), against
+     the `training` phase's step p50 and launches and the peak of one
+     step run here from fresh weights (`train_step_peak`: only the
+     step's arguments alive beside it, where a `Trainer.run` also keeps
+     its caller's step-0 state), and llama3.2-1b
+     ternary_packed at batch 8, cache 256: a 96-token prefill and a decode
+     step, run here on weights drawn from seed 0 and timed on the host
+     clock (`ROOFLINE_REPS`), peaks from `max_memory_allocated`.  For each
+     cell: `bound_ms` (the larger of the traced compute and memory terms
+     at `kernel_model`'s peaks), `dominant`, the measured step ms, bound /
+     measured, the model-FLOP share of the measured step at
+     `BF16_FLOP_PER_S`, the peak estimate beside the measured peak (both
+     above what the process held before the step's arguments).  Fails
+     when bound / measured > ROOFLINE_FRACTION_MAX, when the costed
+     kernel calls differ from the launches counted (112 ternary a
+     prefill or decode step, 16 forward and 8 backward WKV a step), or
+     when a peak estimate is more than ROOFLINE_PEAK_TOL from the measured
+     peak.  In processes of their own, started after `env` so they run
+     beside the phases before this one (`start_roofline_clis`), `python
+     -m repro_torch.launch.dryrun` and `launch.roofline_run` for
+     llama3.2-1b x all shapes; then `python -m benchmarks_torch.run
+     --only roofline` on the dry run's file;
   7. `launch_floor` — an empty kernel timed as the kernels are, and the
      card's `clocks.max.sm`; `timing` — kernel (CUDA events, median of 25
      after warm-up, with the program's schedule), plain version and bound
@@ -328,6 +355,7 @@ Any failed check raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -411,6 +439,15 @@ TRAIN_CROSS = (("llama3.2-1b", "ternary"), ("rwkv6-7b", "dense"),
                ("mixtral-8x22b", "dense"))
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# The roofline phase: the serving cells' prompt length (lm_serving's
+# longest), batch and cache; host-clock repetitions a serving step; the
+# gates on bound / measured and on the peak estimate.
+ROOFLINE_PROMPT = 96
+ROOFLINE_BATCH = 8
+ROOFLINE_CACHE = 256
+ROOFLINE_REPS = 5
+ROOFLINE_FRACTION_MAX = 1.05
+ROOFLINE_PEAK_TOL = 0.10
 # The kernels line's columns for each shape the families gave the kernel.
 FAMILY_SHAPE_FIELDS = ("M", "K", "N", "x", "variant", "ms", "plain_ms",
                        "bound_ms", "bound_by", "library_ms")
@@ -3760,6 +3797,290 @@ def training_phase(dev, smi: str) -> dict:
     return out
 
 
+def roofline_cell(name: str, cfg, shape, *, microbatches: int = 1,
+                  grad_compress: bool = False, cache_len=None,
+                  measured_ms: float, peak_bytes: int,
+                  launches: dict, smi: str) -> dict:
+    """One cell of the `roofline` phase: its cost traced on meta (the
+    components x trips and the whole step), held against what the card
+    measured for the same step."""
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models.params import active_param_count
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.component_costing import cell_tokens, cost_cell
+    from repro_torch.roofline.kernel_model import BF16_FLOP_PER_S
+
+    t0 = time.perf_counter()
+    cost = cost_cell(cfg, shape, microbatches, grad_compress, cache_len)
+    whole = trace_step(cfg, shape, microbatches, grad_compress, cache_len)
+    trace_s = time.perf_counter() - t0
+    r = cost["roofline"]
+    bound_ms = 1e3 * max(r["compute_s"], r["memory_s"])
+    mf = model_flops(active_param_count(cfg.replace(quant="dense")),
+                     cell_tokens(shape), shape.kind)
+    est = whole["memory"]["peak_estimate_bytes"]
+    kernels = {k: int(v) for k, v in cost["kernels"].items()}
+    row = {"cell": name, "arch": cfg.name, "quant": cfg.quant,
+           "n_layers": cfg.n_layers, "kind": shape.kind,
+           "batch": shape.global_batch, "seq": shape.seq_len,
+           "microbatches": microbatches, "grad_compress": grad_compress,
+           "cache_len": cache_len, "bound_ms": bound_ms,
+           "compute_ms": 1e3 * r["compute_s"],
+           "memory_ms": 1e3 * r["memory_s"], "dominant": r["dominant"],
+           "flops_by_class": r["flops_by_class"],
+           "bytes": r["bytes_per_device"], "measured_ms": measured_ms,
+           "bound_over_measured": bound_ms / measured_ms,
+           "model_flops": mf,
+           "model_flop_share": mf / BF16_FLOP_PER_S / (measured_ms * 1e-3),
+           "peak_estimate_bytes": est,
+           "argument_bytes": whole["memory"]["argument_bytes"],
+           "measured_peak_bytes": peak_bytes,
+           "peak_error": est / peak_bytes - 1.0,
+           "costed_kernels": kernels, "traced_kernels": whole["cost"].kernels,
+           "launches": launches, "trace_s": trace_s, "nvidia_smi": smi}
+    say("roofline_cell", **row)
+    if row["bound_over_measured"] > ROOFLINE_FRACTION_MAX:
+        fail(f"roofline: {name}'s bound {bound_ms:.3f} ms is "
+             f"{row['bound_over_measured']:.3f} of the measured "
+             f"{measured_ms:.3f} ms: the costing counts work the card did "
+             "not do")
+    if kernels != launches or whole["cost"].kernels != cost["kernels"]:
+        fail(f"roofline: {name} costs kernel calls {kernels} (whole step "
+             f"{whole['cost'].kernels}), the card launched {launches}")
+    if abs(row["peak_error"]) > ROOFLINE_PEAK_TOL:
+        fail(f"roofline: {name}'s peak estimate {est} B is "
+             f"{row['peak_error']:+.1%} off the measured {peak_bytes} B")
+    return row
+
+
+def train_step_peak(dev, cfg, batch: int, microbatches: int = 1,
+                    grad_compress: bool = False) -> int:
+    """The bytes one `make_train_step` step of `cfg` holds at its peak
+    above what the process held before its arguments: fresh weights
+    (seed SEED), the optimizer state, the error buffer and one batch of
+    the token stream, a warm-up step, then the step measured, with only
+    the step's own arguments alive beside it, as the meta trace has them
+    (a `Trainer.run` also keeps its caller's step-0 state alive)."""
+    import torch
+
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw, adamw8bit
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.grad_compress import init_error_buffer
+    from repro_torch.train.loop import TrainLoopConfig, make_train_step
+
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch, seed=SEED),
+        device=dev)
+    step = make_train_step(cfg, TrainLoopConfig(
+        microbatches=microbatches, grad_compress=grad_compress,
+        optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)))
+    # earlier phases' cyclic garbage freed now, not inside the measured step
+    # (where it would pull the allocated bytes below `base`)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = P.init_params(cfg, seed=SEED, device=dev)
+    opt = (adamw8bit if cfg.opt_8bit else adamw).init(params)
+    err = init_error_buffer(params) if grad_compress else None
+    data = pipe.batch_at(0)
+    params, opt, _, err = step(params, opt, data, err)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _, err = step(params, opt, data, err)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, opt, err, data, _
+    torch.cuda.empty_cache()
+    return peak
+
+
+def roofline_env() -> dict:
+    return {**os.environ,
+            "PYTHONPATH": os.pathsep.join([str(SRC), str(ROOT)])}
+
+
+def start_roofline_clis() -> tuple[Path, dict]:
+    """`python -m repro_torch.launch.dryrun` and `launch.roofline_run` for
+    llama3.2-1b x all shapes, each in a process of its own, writing under
+    a fresh directory.  They trace on meta and only use the host, so they
+    are started first and run beside the phases before `roofline`, which
+    reads them; at exit any still running is killed and the directory
+    removed.  Returns `(directory, {module: process})`."""
+    import atexit
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="roofline_"))
+    procs = {mod: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{mod}", "--arch",
+         "llama3.2-1b", "--out", str(tmp / "reports" / f"{out}.jsonl")]
+        + (["--device", "cuda"] if mod == "dryrun" else []),
+        cwd=str(tmp), env=roofline_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for mod, out in (("dryrun", "dryrun_torch"),
+                         ("roofline_run", "roofline_torch"))}
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return tmp, procs
+
+
+def roofline_phase(dev, smi: str, train: dict, clis: tuple) -> dict:
+    """The step roofline against the card (the docstring's 6d); `clis` is
+    what `start_roofline_clis` returned."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import cuda_ternary_matmul as CT
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    tmp, procs = clis
+    reports = tmp / "reports"
+    rows = []
+    # -- the training phase's cells ------------------------------------
+    # the step time and the launches are the training phase's, the
+    # peak that of one step with only its arguments alive beside it
+    rwkv, llama = train["rwkv"], train["llama"]
+    cfg = get_config("rwkv6-7b").replace(n_layers=TRAIN_RWKV_DEPTH,
+                                         opt_8bit=True)
+    seq = ShapeConfig("train", TRAIN_SEQ, TRAIN_RWKV_BATCH, "train")
+    rows.append(roofline_cell(
+        "train rwkv6-7b", cfg, seq,
+        microbatches=TRAIN_RWKV_MICRO, grad_compress=True,
+        measured_ms=rwkv["step_p50_ms"],
+        peak_bytes=train_step_peak(dev, cfg, TRAIN_RWKV_BATCH,
+                                   TRAIN_RWKV_MICRO, True),
+        launches={k: v / TRAIN_STEPS for k, v in (
+            *rwkv["launches"].items(),
+            ("ternary_matmul", rwkv["ternary_matmul_launches"])) if v},
+        smi=smi))
+    cfg = get_config("llama3.2-1b").replace(quant="ternary")
+    seq = ShapeConfig("train", TRAIN_SEQ, TRAIN_LLAMA_BATCH, "train")
+    rows.append(roofline_cell(
+        "train llama3.2-1b", cfg, seq, measured_ms=llama["step_p50_ms"],
+        peak_bytes=train_step_peak(dev, cfg, TRAIN_LLAMA_BATCH),
+        launches={k: v for k, v in (*llama["launches"].items(), (
+            "ternary_matmul", llama["ternary_matmul_launches"])) if v},
+        smi=smi))
+
+    # -- lm_serving's cells, run here ----------------------------------
+    cfg = get_config("llama3.2-1b").replace(quant="ternary_packed")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = P.serving_params(cfg, SEED, dev)
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, (ROOFLINE_BATCH, ROOFLINE_PROMPT)).astype(
+            np.int32)).to(dev)}
+
+    def prefill():
+        with torch.inference_mode():
+            hidden, cache = TF.prefill(cfg, params, batch,
+                                       ROOFLINE_CACHE)
+            return TF.logits_from_hidden(cfg, params,
+                                         hidden[:, -1:, :]), cache
+
+    def measure(step):
+        """(one step's peak above `base` and ternary launches, the
+        p50 ms of ROOFLINE_REPS more on the host clock)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CT.reset_launches()
+        out = step(0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {"ternary_matmul": CT.LAUNCHES["ternary_matmul"]}
+        del out
+        times = []
+        for i in range(ROOFLINE_REPS):
+            t0 = time.perf_counter()
+            out = step(i + 1)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            del out
+        return peak, launches, float(np.median(times))
+
+    prefill()                                       # warm-up
+    peak, launches, ms = measure(lambda i: prefill())
+    rows.append(roofline_cell(
+        "prefill llama3.2-1b ternary_packed", cfg,
+        ShapeConfig("prefill", ROOFLINE_PROMPT, ROOFLINE_BATCH,
+                    "prefill"), cache_len=ROOFLINE_CACHE,
+        measured_ms=ms, peak_bytes=peak, launches=launches, smi=smi))
+    logits, cache = prefill()
+    del logits
+    tok = torch.ones((ROOFLINE_BATCH, 1), dtype=torch.int32, device=dev)
+
+    def decode(i):
+        with torch.inference_mode():
+            return TF.decode_step(cfg, params, cache, tok,
+                                  ROOFLINE_PROMPT + i)[0]
+
+    decode(0)                                       # warm-up
+    peak, launches, ms = measure(decode)
+    rows.append(roofline_cell(
+        "decode llama3.2-1b ternary_packed", cfg,
+        ShapeConfig("decode", ROOFLINE_CACHE, ROOFLINE_BATCH, "decode"),
+        measured_ms=ms, peak_bytes=peak, launches=launches, smi=smi))
+    del params, cache, batch, tok
+    torch.cuda.empty_cache()
+
+    # -- the CLIs, in processes of their own ---------------------------
+    clis = {}
+    for mod, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        clis[mod] = {"returncode": proc.returncode,
+                     "lines": out.strip().splitlines()}
+        if proc.returncode:
+            fail(f"roofline: launch.{mod} exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+    bench = subprocess.run(
+        [sys.executable, "-m", "benchmarks_torch.run", "--only",
+         "roofline", "--device", "cuda"], capture_output=True,
+        text=True, timeout=300, cwd=str(tmp), env=roofline_env())
+    if bench.returncode:
+        fail(f"roofline: benchmarks_torch.run --only roofline exited "
+             f"{bench.returncode}: {bench.stderr[-2000:]}")
+    bench_rows = [json.loads(line.split(",", 2)[2]) for line in
+                  bench.stdout.strip().splitlines()[1:]]
+    records = [json.loads(line) for line in
+               (reports / "dryrun_torch.jsonl").read_text().splitlines()]
+    statuses = {r["shape"]: r["status"] for r in records}
+    want = {"train_4k": "ok", "prefill_32k": "ok", "decode_32k": "ok",
+            "long_500k": "skipped"}
+    if statuses != want or [r["status"] for r in bench_rows] != \
+            [want[r["shape"]] for r in bench_rows] \
+            or len(bench_rows) != len(want):
+        fail(f"roofline: the dry run gave {statuses} and the harness "
+             f"{bench_rows}")
+    clis["bench_rows"] = bench_rows
+    clis["device"] = records[0]["device"]
+    out = {"cells": rows, "clis": clis,
+           "seconds": time.perf_counter() - t_phase}
+    say("roofline", nvidia_smi=smi, seconds=out["seconds"],
+        cells=[{k: r[k] for k in ("cell", "bound_ms", "dominant",
+                                  "measured_ms", "bound_over_measured",
+                                  "model_flop_share", "peak_estimate_bytes",
+                                  "measured_peak_bytes")} for r in rows],
+        dryrun=clis["dryrun"]["lines"],
+        roofline_run=clis["roofline_run"]["lines"],
+        bench_rows=clis["bench_rows"], dryrun_device=clis["device"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3795,6 +4116,7 @@ def main() -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0],
         device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
+    roofline_clis = start_roofline_clis()      # read by the roofline phase
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4139,6 +4461,9 @@ def main() -> int:
     rwkv = rwkv_phases(dev, get_config("rwkv6-7b"))
     # -- 5c. LM training on the card, counted; card against CPU ------------
     train = training_phase(dev, smi)
+    # -- 5d. the step roofline of those cells, traced on meta, against the
+    # card ------------------------------------------------------------------
+    roofline_phase(dev, smi, train, roofline_clis)
 
     # -- 7. timing ----------------------------------------------------------
     mhz = max_sm_clock_mhz()

@@ -2,15 +2,19 @@
 
 `get_config(name)` resolves an arch id to its `ModelConfig`, the port's own
 copy of the reference's config file; `ARCHS` lists the ten ids in the
-reference's order.  An unknown id raises `KeyError`.
+reference's order.  An unknown id raises `KeyError`.  `SHAPES` and
+`shape_applicable` are the dry-run cells (`configs.base`).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoESpec, SSMSpec
+from repro_torch.configs.base import (
+    SHAPES, ModelConfig, MoESpec, ShapeConfig, SSMSpec, shape_applicable,
+)
 
-__all__ = ["ARCHS", "ModelConfig", "MoESpec", "SSMSpec", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "MoESpec", "SSMSpec",
+           "ShapeConfig", "get_config", "shape_applicable"]
 
 ARCHS: tuple[str, ...] = (
     "qwen2-vl-72b",

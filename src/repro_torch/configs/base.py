@@ -1,10 +1,13 @@
-"""Model configuration dataclasses, the port's copy of `repro.configs.base`.
+"""Model and shape configuration, the port's copy of `repro.configs.base`.
 
 Field names and defaults are the reference's, so a config built here and
 one built there describe the same model; `reduced()` derives the same small
 same-family config the CPU tests use.  Sharding-only fields
 (`serve_fsdp`, `replicate_kv`, `moe_fsdp`, ...) are kept for that equality
-even though the single-device port reads none of them.
+even though the single-device port reads none of them.  `SHAPES` are the
+four dry-run cells (`launch.dryrun`, `launch.roofline_run`) and
+`shape_applicable` says which of them an arch can run, with the
+reference's reason when it cannot.
 """
 from __future__ import annotations
 
@@ -81,6 +84,11 @@ class ModelConfig:
     def attention_free(self) -> bool:
         return self.family == "ssm" and self.ssm is not None and self.ssm.kind == "rwkv6"
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid / windowed attention)."""
+        return self.attention_free or self.family == "hybrid" or self.swa_window is not None
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -107,3 +115,27 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_size=4, rwkv_head_size=16, lora_rank=4)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable, reason-if-not).  long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k-token KV decode has no "
+                       "sub-quadratic path (DESIGN.md §Arch-applicability)")
+    return True, ""

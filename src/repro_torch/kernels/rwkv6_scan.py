@@ -28,7 +28,9 @@ versions here run the recurrence token by token and hold at any decay in
 
 The tensors' device picks the executor: on the CPU the plain version
 below, on a CUDA device the hand-written kernel (`cuda_rwkv6_scan`,
-`csrc/rwkv6_scan.cu`); nothing falls back from one to the other.
+`csrc/rwkv6_scan.cu`), on the `meta` device the card path's outputs
+(shapes and dtypes, and the backward's scratch), with the call reported
+to the costing (`kernels.meta`); nothing falls back from one to another.
 
 Gradients.  Where autograd records (grad mode on and an operand needing
 a gradient) the router runs `WKVScan`, a `torch.autograd.Function`: its
@@ -164,6 +166,9 @@ class WKVScan(torch.autograd.Function):
         if r.device.type == "cuda":
             from repro_torch.kernels import cuda_rwkv6_scan
             y, s = cuda_rwkv6_scan.launch(r, k, v, w, u, s0, ckpt=ckpt)
+        elif r.device.type == "meta":
+            from repro_torch.kernels import meta
+            y, s = meta.rwkv6_scan(r, k, v, w, u, s0)
         else:
             y, s = rwkv6_scan_plain(r, k, v, w, u, s0, ckpt=ckpt)
         ctx.save_for_backward(r, k, v, w, u, ckpt)
@@ -180,6 +185,10 @@ class WKVScan(torch.autograd.Function):
         if r.device.type == "cuda":
             from repro_torch.kernels import cuda_rwkv6_scan
             out = cuda_rwkv6_scan.launch_bwd(r, k, v, w, u, ckpt, dy, ds)
+        elif r.device.type == "meta":
+            from repro_torch.kernels import meta
+            out = meta.rwkv6_scan_bwd(r, k, v, w, u, ckpt, dy, ds,
+                                      ctx.has_s0)
         else:
             out = rwkv6_scan_bwd_plain(r, k, v, w, u, ckpt, dy, ds)
         dr, dk, dv, dw, du_rows, ds0 = out
@@ -269,7 +278,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if s_out is not None:
             raise ValueError("s_out (a state written in place) cannot be "
                              "used where autograd records a gradient")
-        if r.device.type not in ("cpu", "cuda"):
+        if r.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"no executor for device {r.device}")
         return WKVScan.apply(r, k, v, w, u, s0)
     if r.device.type == "cpu":
@@ -277,4 +286,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cuda":
         from repro_torch.kernels import cuda_rwkv6_scan
         return cuda_rwkv6_scan.launch(r, k, v, w, u, s0, s_out)
+    if r.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.rwkv6_scan(r, k, v, w, u, s0, s_out)
     raise ValueError(f"no executor for device {r.device}")

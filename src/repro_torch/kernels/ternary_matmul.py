@@ -5,13 +5,15 @@ x `(M, K)` bf16 or f32, w2 `(K//4, N)` int8 holding four 2-bit codes per
 byte along K (`core.ternary`), scale `(1, N)` f32, result `(M, N)` f32.
 The tensors' device picks the executor: on the CPU the plain version
 below, on a CUDA device the hand-written kernel
-(`cuda_ternary_matmul`, `csrc/ternary_matmul.cu`); nothing falls back from
-one to the other.  Both apply the scale after the sum, as the Pallas
-kernel `repro/kernels/ternary_matmul.py` and `ref.ternary_matmul_ref` do.
+(`cuda_ternary_matmul`, `csrc/ternary_matmul.cu`); on the `meta` device
+the card path's output, shape and dtype only, with the call reported to
+the costing (`kernels.meta`).  Nothing falls back from one to another.
+Both apply the scale after the sum, as the Pallas kernel
+`repro/kernels/ternary_matmul.py` and `ref.ternary_matmul_ref` do.
 
-The kernel is forward-only, as the Pallas kernel is: on a CUDA tensor
-the router raises when autograd would need a gradient through it (grad
-mode on and x or scale requiring one).  The reference trains `"dense"`
+The kernel is forward-only, as the Pallas kernel is: on a CUDA (or meta)
+tensor the router raises when autograd would need a gradient through it
+(grad mode on and x or scale requiring one).  The reference trains `"dense"`
 and `"ternary"` (a dense product with a straight-through quantizer),
 never `"ternary_packed"`; serving runs under `torch.inference_mode`.
 """
@@ -66,7 +68,7 @@ def ternary_matmul(x: torch.Tensor, w2: torch.Tensor,
     check_operands(x, w2, scale)
     if x.device.type == "cpu":
         return ternary_matmul_plain(x, w2, scale)
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         if torch.is_grad_enabled() and (x.requires_grad
                                         or scale.requires_grad):
             raise RuntimeError(
@@ -74,6 +76,9 @@ def ternary_matmul(x: torch.Tensor, w2: torch.Tensor,
                 "ternary projection cannot be trained; train with "
                 "quant='ternary' (straight-through) or run under "
                 "torch.no_grad() / torch.inference_mode()")
+        if x.device.type == "meta":
+            from repro_torch.kernels import meta
+            return meta.ternary_matmul(x, w2, scale)
         from repro_torch.kernels import cuda_ternary_matmul
         return cuda_ternary_matmul.launch(x, w2, scale)
     raise ValueError(f"no executor for device {x.device}")

@@ -87,8 +87,11 @@ def mamba_forward(p: dict, x: torch.Tensor, state: MambaState | None = None
     Bu = (dtf * xi.float())[..., None] * Bm[:, :, None, :]
     h = (torch.zeros_like(Bu[:, 0]) if state is None else state.h)
     hs = []
-    for t in range(S):
-        h = Abar[:, t] * h + Bu[:, t]
+    # unbound once: autograd then writes each operand's gradient once,
+    # where indexing it a step at a time would write a zero-filled copy
+    # of the whole (B, S, di, N) operand a step (quadratic in S)
+    for a_t, b_t in zip(Abar.unbind(1), Bu.unbind(1)):
+        h = a_t * h + b_t
         hs.append(h)
     h_all = torch.stack(hs, dim=1)                             # (B, S, di, N)
     y = torch.einsum("bsdn,bsn->bsd", h_all, Cm)               # (B, S, di)

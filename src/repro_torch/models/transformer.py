@@ -20,6 +20,12 @@ copy of the whole cache per step).  The families:
     written over the first `n_vision_tokens` positions;
   * RWKV-6.
 
+Every layer runs through one of the standalone per-layer entry points,
+the reference's `apply_block` (full sequence) and `apply_block_decode`
+(a decode step), which `roofline.component_costing` costs one at a time;
+the full-sequence stack unbinds its stacked weights once, so a backward
+pass writes each stack's gradient once.
+
 Training: `loss_fn` is the reference's objective, the mean label NLL from
 `chunked_ce_loss` (the (B, S, V) logits computed S-chunk by S-chunk) plus
 `MOE_AUX_COEF` times the MoE load-balancing loss `forward` carries; with
@@ -78,6 +84,16 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer i's parameters: every stacked leaf indexed on its L axis."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n layers' parameters, every stacked leaf unbound along its L
+    axis once.  Autograd then writes a stack's gradient once; indexed a
+    layer at a time, each layer's gradient would be a zero-filled copy of
+    the whole stack, accumulated: traffic quadratic in the depth."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -199,6 +215,36 @@ def _block_dec_xattn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return x, _zero(x), (kv, (xk, xv))
 
 
+def apply_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+                cos=None, sin=None, enc_out: torch.Tensor | None = None):
+    """One full-sequence layer (the stack's body), standalone: `(x, aux,
+    cache entry)`.  The reference's `apply_block`; `forward` runs every
+    layer through it and `roofline.component_costing` costs one."""
+    if is_rwkv(cfg):
+        return _block_rwkv(cfg, lp, x)
+    if is_hybrid(cfg):
+        return _block_hybrid(cfg, lp, x, cos, sin)
+    if cfg.enc_layers and enc_out is not None:
+        return _block_dec_xattn(cfg, lp, x, enc_out, cos, sin)
+    return _block_dense(cfg, lp, x, cos, sin)
+
+
+def layer_body(cfg: ModelConfig, *, cos=None, sin=None,
+               enc_out: torch.Tensor | None = None):
+    """`_stack`'s body `(x, lp) -> (x, aux, entry)` for decoder layers:
+    `apply_block` with the step's rope tables and encoder output."""
+    def body(x, lp):
+        return apply_block(cfg, lp, x, cos=cos, sin=sin, enc_out=enc_out)
+    return body
+
+
+def encoder_body(cfg: ModelConfig):
+    """`_stack`'s body for encoder layers (whisper)."""
+    def body(x, lp):
+        return _block_enc(cfg, lp, x), _zero(x), None
+    return body
+
+
 def _rope_for(cfg: ModelConfig, batch: dict, S: int, B: int, device):
     if cfg.rope == "none":
         return None, None
@@ -223,8 +269,7 @@ def _stack(cfg: ModelConfig, layers: dict, n: int, x: torch.Tensor, body,
     (x, summed aux, entries | None)."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux, caches = _zero(x), []
-    for i in range(n):
-        lp = _layer(layers, i)
+    for lp in _unstack(layers, n):
         if remat:
             x, aux_l, entry = torch.utils.checkpoint.checkpoint(
                 body, x, lp, use_reentrant=False)
@@ -256,30 +301,20 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
                              f"than its {ve.shape[1]} vision embeddings")
         x = torch.cat([ve.to(comp), x[:, ve.shape[1]:]], dim=1)
-    if is_rwkv(cfg):
-        def body(xx, lp):
-            return _block_rwkv(cfg, lp, xx)
-    else:
+    cos = sin = enc_out = None
+    if not is_rwkv(cfg):
         cos, sin = _rope_for(cfg, batch, S, B, x.device)
         if cfg.enc_layers:
             enc = batch["enc_frames"].to(comp) \
                 + params["enc_pos"][None].to(comp)
-            enc, _, _ = _stack(
-                cfg, params["enc_layers"], cfg.enc_layers, enc,
-                lambda xx, lp: (_block_enc(cfg, lp, xx), _zero(xx), None),
-                False)
+            enc, _, _ = _stack(cfg, params["enc_layers"], cfg.enc_layers,
+                               enc, encoder_body(cfg), False)
             enc_out = _norm(cfg, params["enc_final_norm"], enc)
             x = x + params["dec_pos"][:S][None].to(comp)
-
-            def body(xx, lp):
-                return _block_dec_xattn(cfg, lp, xx, enc_out, cos, sin)
-        elif is_hybrid(cfg):
-            def body(xx, lp):
-                return _block_hybrid(cfg, lp, xx, cos, sin)
-        else:
-            def body(xx, lp):
-                return _block_dense(cfg, lp, xx, cos, sin)
-    x, aux, caches = _stack(cfg, params["layers"], cfg.n_layers, x, body,
+    body = layer_body(cfg, cos=cos, sin=sin, enc_out=enc_out)
+    # a depth-0 tree (the costing's embedding and head alone) has no stack
+    layers = params["layers"] if cfg.n_layers else {}
+    x, aux, caches = _stack(cfg, layers, cfg.n_layers, x, body,
                             collect_cache)
     x = _norm(cfg, params["final_norm"], x)
     return x, aux, caches
@@ -420,6 +455,76 @@ def _decode_rope(cfg: ModelConfig, pos: int, B: int, device,
     return None, None
 
 
+def apply_block_decode(cfg: ModelConfig, lp: dict, cl: dict,
+                       x: torch.Tensor, pos: int, cos, sin, mask, slot,
+                       xmask):
+    """One decode-step layer (the decode loop's body), standalone: `cl`
+    holds this layer's cache entries (views into the model's cache), which
+    the step updates in place; the other arguments are
+    `decode_context`'s.  Returns `(x, cl)`.  The reference's
+    `apply_block_decode`; `decode_step` runs every layer through it and
+    `roofline.component_costing` costs one."""
+    kind = cache_spec(cfg, 0).kind
+    if kind == "rwkv":
+        st = SSM.RWKVState(cl["shift_tm"], cl["shift_cm"], cl["wkv"])
+        # the WKV state is updated in place; the token shifts copied
+        x, _, (last_tm, last_cm, _) = _block_rwkv(cfg, lp, x, st,
+                                                  wkv_out=st.wkv)
+        cl["shift_tm"].copy_(last_tm)
+        cl["shift_cm"].copy_(last_cm)
+        return x, cl
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    h = _norm(cfg, lp["ln1"], x)
+    a = _attn_decode(cfg, lp["attn"], h, cl["k"], cl["v"], cos, sin, mask,
+                     slot)
+    if kind == "hybrid":
+        m, st = SSM.mamba_decode(lp["mamba"], h, SSM.MambaState(
+            cl["mamba_h"], cl["mamba_conv"]))
+        cl["mamba_h"].copy_(st.h)
+        cl["mamba_conv"].copy_(st.conv)
+        a = 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
+                   + _norm(cfg, lp["mamba_out_norm"], m))
+    x = x + a
+    if kind == "encdec":
+        hq = _norm(cfg, lp["ln_x"], x)
+        q = linear(lp["xattn"]["wq"], hq, cfg.quant).reshape(B, 1, H, dh)
+        xo = ATT.decode_attention(q, cl["xk"], cl["xv"], xmask)
+        x = x + linear(lp["xattn"]["wo"], xo.reshape(B, 1, H * dh),
+                       cfg.quant)
+    x = x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))[0]
+    return x, cl
+
+
+def decode_context(cfg: ModelConfig, cache: dict, pos: int, B: int, device,
+                   positions: torch.Tensor | None = None):
+    """What every layer of a decode step at `pos` shares: `(cos, sin,
+    mask, slot, xmask)`, the rope tables, the self-attention mask and the
+    cache slot the step writes, and the cross-attention mask of an
+    encoder-decoder (None elsewhere; all None for RWKV-6)."""
+    kind = cache_spec(cfg, 0).kind
+    if kind == "rwkv":
+        return None, None, None, None, None
+    Sc = int(cache["k"].shape[2])
+    cos, sin = _decode_rope(cfg, pos, B, device, positions)
+    rolling = cfg.swa_window is not None and Sc == cfg.swa_window
+    if rolling:
+        slot = ATT.rolling_slot(pos, Sc)
+        mask = ATT.rolling_mask(pos, Sc, device)
+    else:
+        if not 0 <= pos < Sc:
+            # the reference's dynamic_update_slice would clamp the slot to
+            # Sc - 1 and overwrite the last entry; refuse instead
+            raise ValueError(f"decode position {pos} is outside the cache "
+                             f"of {Sc} slots")
+        slot, mask = pos, ATT.linear_mask(pos, Sc, device)
+    xmask = None
+    if kind == "encdec":
+        xmask = torch.ones(cache["xk"].shape[2], dtype=torch.bool,
+                           device=device)
+    return cos, sin, mask, slot, xmask
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, pos: int,
                 positions: torch.Tensor | None = None):
@@ -431,58 +536,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """
     comp = _cdt(cfg)
     x = embed(params["embed"]["tokens"], tokens, comp)
-    kind = cache_spec(cfg, 0).kind
-    if kind == "rwkv":
-        for i in range(cfg.n_layers):
-            st = SSM.RWKVState(cache["shift_tm"][i], cache["shift_cm"][i],
-                               cache["wkv"][i])
-            # the WKV state is updated in place; the token shifts copied
-            x, _, (last_tm, last_cm, _) = _block_rwkv(
-                cfg, _layer(params["layers"], i), x, st, wkv_out=st.wkv)
-            cache["shift_tm"][i] = last_tm
-            cache["shift_cm"][i] = last_cm
-        x = _norm(cfg, params["final_norm"], x)
-        return logits_from_hidden(cfg, params, x), cache
-    dev = x.device
-    B = x.shape[0]
-    Sc = int(cache["k"].shape[2])
-    cos, sin = _decode_rope(cfg, pos, B, dev, positions)
-    rolling = cfg.swa_window is not None and Sc == cfg.swa_window
-    if rolling:
-        slot, mask = ATT.rolling_slot(pos, Sc), ATT.rolling_mask(pos, Sc, dev)
-    else:
-        if not 0 <= pos < Sc:
-            # the reference's dynamic_update_slice would clamp the slot to
-            # Sc - 1 and overwrite the last entry; refuse instead
-            raise ValueError(f"decode position {pos} is outside the cache "
-                             f"of {Sc} slots")
-        slot, mask = pos, ATT.linear_mask(pos, Sc, dev)
-    if kind == "encdec":
+    ctx = decode_context(cfg, cache, pos, x.shape[0], x.device, positions)
+    if cfg.enc_layers:
         x = x + params["dec_pos"][pos:pos + 1][None].to(comp)
-        all_enc = torch.ones(cache["xk"].shape[2], dtype=torch.bool,
-                             device=dev)
-    H, dh = cfg.n_heads, cfg.head_dim
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = _norm(cfg, lp["ln1"], x)
-        a = _attn_decode(cfg, lp["attn"], h, cache["k"][i], cache["v"][i],
-                         cos, sin, mask, slot)
-        if kind == "hybrid":
-            m, st = SSM.mamba_decode(lp["mamba"], h, SSM.MambaState(
-                cache["mamba_h"][i], cache["mamba_conv"][i]))
-            cache["mamba_h"][i] = st.h
-            cache["mamba_conv"][i] = st.conv
-            a = 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
-                       + _norm(cfg, lp["mamba_out_norm"], m))
-        x = x + a
-        if kind == "encdec":
-            hq = _norm(cfg, lp["ln_x"], x)
-            q = linear(lp["xattn"]["wq"], hq, cfg.quant).reshape(B, 1, H, dh)
-            xo = ATT.decode_attention(q, cache["xk"][i], cache["xv"][i],
-                                      all_enc)
-            x = x + linear(lp["xattn"]["wo"], xo.reshape(B, 1, H * dh),
-                           cfg.quant)
-        x = x + _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))[0]
+        x, _ = apply_block_decode(cfg, _layer(params["layers"], i),
+                                  _layer(cache, i), x, pos, *ctx)
     x = _norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), cache
 
@@ -495,10 +554,17 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     S exceeds the window (slot order == position order).
     """
     x, _, caches = forward(cfg, params, batch, collect_cache=True)
+    return x, assemble_cache(cfg, caches, x.shape[1], cache_len)
+
+
+def assemble_cache(cfg: ModelConfig, caches: list, S: int,
+                   cache_len: int) -> dict:
+    """The decode cache from `forward`'s per-layer entries of an S-token
+    prefill: each entry stacked along a leading layer axis (the K/V fitted
+    to `cache_len` slots and cast to the KV dtype)."""
     if is_rwkv(cfg):
-        return x, {name: torch.stack([c[n] for c in caches]).contiguous()
-                   for n, name in enumerate(SSM.RWKVState._fields)}
-    S = x.shape[1]
+        return {name: torch.stack([c[n] for c in caches]).contiguous()
+                for n, name in enumerate(SSM.RWKVState._fields)}
     spec = cache_spec(cfg, cache_len)
     Sc = spec.cache_len
 
@@ -525,4 +591,4 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     if spec.kind == "encdec":
         out["xk"] = stacked((c[1][0] for c in caches), kvdt)
         out["xv"] = stacked((c[1][1] for c in caches), kvdt)
-    return x, out
+    return out

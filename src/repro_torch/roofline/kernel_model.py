@@ -16,7 +16,10 @@ Peaks (NVIDIA H100 SXM data sheet):
   * `BF16_FLOP_PER_S`   989e12 dense bf16 tensor-core FLOP/s (the ternary
     matmul);
   * `F32_FLOP_PER_S`    67e12 f32 FLOP/s on the CUDA cores (the WKV-6
-    scan and its backward, `wkv_bound_ms` and `wkv_bwd_bound_ms`);
+    scan and its backward, `wkv_bound_ms` and `wkv_bwd_bound_ms`, and
+    every float32 product of the port, which runs with TF32 off);
+  * `HBM_CAPACITY_BYTES` 80 GB of HBM3 (`launch.dryrun --device cpu`
+    checks a step's peak against it);
   * the chain: `CHAIN_CYCLES_PER_LEVEL` SM cycles a logic level (one
     shared-memory round trip and one barrier) at the card's highest SM
     clock, `DEFAULT_SM_CLOCK_MHZ` unless the caller reads it
@@ -60,6 +63,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+HBM_CAPACITY_BYTES = 80e9
+DEVICE_NAME = "NVIDIA H100 SXM 80GB (data sheet)"
 OPS_PER_GATE_WORD = 6          # m0 ^ (ma&a) ^ (mb&b) ^ (mab&a&b)
 CHAIN_CYCLES_PER_LEVEL = 30
 DEFAULT_SM_CLOCK_MHZ = 1980.0
@@ -249,49 +254,66 @@ def variant_rows(s: CircuitShape, decode: bool = True,
         ("global_scratch", global_scratch_roofline))]
 
 
+def ternary_roofline(M: int, K: int, N: int, x_bytes: int) -> Roofline:
+    """`(x @ unpack(w2)) * scale`: x, the 2-bit codes w2, scale and the
+    f32 output each moved once, against 2*M*K*N operations at the bf16
+    tensor-core rate."""
+    return Roofline(float(M * K * x_bytes + (K // 4) * N + N * 4 + M * N * 4),
+                    2.0 * M * K * N, BF16_FLOP_PER_S)
+
+
 def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
                      ) -> tuple[float, str]:
-    """Least time for `(x @ unpack(w2)) * scale`: x, the 2-bit codes w2,
-    scale and the f32 output each moved once, against 2*M*K*N operations
-    at the bf16 tensor-core rate."""
-    rl = Roofline(float(M * K * x_bytes + (K // 4) * N + N * 4 + M * N * 4),
-                  2.0 * M * K * N, BF16_FLOP_PER_S)
+    """Least time for `(x @ unpack(w2)) * scale` (`ternary_roofline`)."""
+    rl = ternary_roofline(M, K, N, x_bytes)
     return rl.bound_ms, rl.dominant
+
+
+def wkv_roofline(BH: int, T: int, dh: int, with_s0: bool,
+                 x_bytes: int = 4, u_rows: int | None = None) -> Roofline:
+    """The WKV-6 scan: r, k, v (`x_bytes` an element), w, u (`u_rows`
+    rows of dh, BH by default), s0 read once and y and the final state
+    written once (float32), against `WKV_FLOPS` per (row, token, i, j)
+    at the float32 CUDA-core rate."""
+    n_bytes = (3 * x_bytes + 4 + 4) * BH * T * dh \
+        + 4 * dh * (BH if u_rows is None else u_rows) \
+        + 4 * BH * dh * dh * (2 if with_s0 else 1)
+    return Roofline(float(n_bytes), float(WKV_FLOPS * BH * T * dh * dh),
+                    F32_FLOP_PER_S)
 
 
 def wkv_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
                  x_bytes: int = 4, u_rows: int | None = None
                  ) -> tuple[float, str]:
-    """Least time for the WKV-6 scan: r, k, v (`x_bytes` an element), w,
-    u (`u_rows` rows of dh, BH by default), s0 read once and y and the
-    final state written once (float32), against `WKV_FLOPS` per (row,
-    token, i, j) at the float32 CUDA-core rate."""
-    n_bytes = (3 * x_bytes + 4 + 4) * BH * T * dh \
-        + 4 * dh * (BH if u_rows is None else u_rows) \
-        + 4 * BH * dh * dh * (2 if with_s0 else 1)
-    rl = Roofline(float(n_bytes), float(WKV_FLOPS * BH * T * dh * dh),
-                  F32_FLOP_PER_S)
+    """Least time for the WKV-6 scan (`wkv_roofline`)."""
+    rl = wkv_roofline(BH, T, dh, with_s0, x_bytes, u_rows)
     return rl.bound_ms, rl.dominant
 
 
-def wkv_bwd_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
+def wkv_bwd_roofline(BH: int, T: int, dh: int, with_s0: bool,
                      with_ds: bool, x_bytes: int = 4,
-                     u_rows: int | None = None) -> tuple[float, str]:
-    """Least time for the WKV-6 backward: r, k, v (`x_bytes` an element),
-    w and dy (float32), the checkpointed states a row (`rwkv6_scan.
-    n_checkpoints`),
-    u and, `with_ds`, the final state's gradient read once; dr, dk, dv
-    (`x_bytes`), dw, du (`u_rows` rows of dh, BH by default) and,
-    `with_s0`, ds0 written once.  Operations: the forward recompute
-    (`WKV_FLOPS`) plus `WKV_BWD_FLOPS` per (row, token, i, j) at the
-    float32 CUDA-core rate."""
+                     u_rows: int | None = None) -> Roofline:
+    """The WKV-6 backward: r, k, v (`x_bytes` an element), w and dy
+    (float32), the checkpointed states a row (`rwkv6_scan.
+    n_checkpoints`), u and, `with_ds`, the final state's gradient read
+    once; dr, dk, dv (`x_bytes`), dw, du (`u_rows` rows of dh, BH by
+    default) and, `with_s0`, ds0 written once.  Operations: the forward
+    recompute (`WKV_FLOPS`) plus `WKV_BWD_FLOPS` per (row, token, i, j)
+    at the float32 CUDA-core rate."""
     states = n_checkpoints(T) + int(with_ds) + int(with_s0)
     n_bytes = (3 * x_bytes + 4 + 4) * BH * T * dh \
         + (3 * x_bytes + 4) * BH * T * dh \
         + 2 * 4 * dh * (BH if u_rows is None else u_rows) \
         + 4 * BH * dh * dh * states
     flops = (WKV_FLOPS + WKV_BWD_FLOPS) * BH * T * dh * dh
-    rl = Roofline(float(n_bytes), float(flops), F32_FLOP_PER_S)
+    return Roofline(float(n_bytes), float(flops), F32_FLOP_PER_S)
+
+
+def wkv_bwd_bound_ms(BH: int, T: int, dh: int, with_s0: bool,
+                     with_ds: bool, x_bytes: int = 4,
+                     u_rows: int | None = None) -> tuple[float, str]:
+    """Least time for the WKV-6 backward (`wkv_bwd_roofline`)."""
+    rl = wkv_bwd_roofline(BH, T, dh, with_s0, with_ds, x_bytes, u_rows)
     return rl.bound_ms, rl.dominant
 
 

@@ -87,13 +87,40 @@ def grads_of(cfg: ModelConfig, params: dict, batch: dict
             {k: v.detach() for k, v in metrics.items()})
 
 
+def accumulator(params: dict, acc_dt: torch.dtype) -> dict:
+    """A zero gradient sum shaped like `params`, in `acc_dt`."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                          device=p.device), params)
+
+
+def accumulate_(gsum: dict, grads: dict, acc_dt: torch.dtype) -> None:
+    """`gsum += grads` leaf by leaf, in `acc_dt`."""
+    tree_map(lambda a, b: a.add_(b.to(acc_dt)), gsum, grads)
+
+
+def averaged(gsum: dict, n_mb: int, like: torch.Tensor) -> dict:
+    """The mean gradient of `n_mb` microbatches from their sum."""
+    div = _f32(n_mb, like)
+    return tree_map(lambda g: g / div, gsum)
+
+
+def update(cfg: ModelConfig, loop_cfg: TrainLoopConfig, params: dict,
+           grads: dict, opt_state, err_buf=None):
+    """The step after the gradients: optional compression, then one
+    optimizer update.  Returns `(params, opt_state, err_buf)`."""
+    if loop_cfg.grad_compress and err_buf is not None:
+        grads, err_buf = compress_grads(grads, err_buf)
+    opt_mod = adamw8bit if cfg.opt_8bit else adamw
+    params, opt_state = opt_mod.apply_updates(params, grads, opt_state,
+                                              loop_cfg.optimizer)
+    return params, opt_state, err_buf
+
+
 def make_train_step(cfg: ModelConfig, loop_cfg: TrainLoopConfig) -> Callable:
     """`train_step(params, opt_state, batch, err_buf=None) -> (params,
     opt_state, metrics, err_buf)`: gradients (accumulated over
     microbatches), optional compression, then one optimizer update
     (AdamW, int8 moments per `cfg.opt_8bit`)."""
-    opt_mod = adamw8bit if cfg.opt_8bit else adamw
-    ocfg = loop_cfg.optimizer
     acc_dt = P.DTYPES[cfg.accum_dtype]
 
     def train_step(params, opt_state, batch, err_buf=None):
@@ -103,27 +130,23 @@ def make_train_step(cfg: ModelConfig, loop_cfg: TrainLoopConfig) -> Callable:
             if B % n_mb:
                 raise ValueError(f"batch {B} does not split into {n_mb} "
                                  "microbatches")
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                  device=p.device), params)
+            gsum = accumulator(params, acc_dt)
             nll = ntok = None
             for i in range(n_mb):
                 mb = {k: v.reshape(n_mb, B // n_mb, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 g, met = grads_of(cfg, params, mb)
-                tree_map(lambda a, b: a.add_(b.to(acc_dt)), gsum, g)
+                accumulate_(gsum, g, acc_dt)
                 del g
                 nll = met["nll"] if nll is None else nll + met["nll"]
                 ntok = met["tokens"] if ntok is None else ntok + met["tokens"]
-            div = _f32(n_mb, ntok)
-            grads = tree_map(lambda g: g / div, gsum)
+            grads = averaged(gsum, n_mb, ntok)
             metrics = {"loss": nll / torch.clamp(ntok, min=1.0), "nll": nll,
                        "tokens": ntok, "moe_aux": torch.zeros_like(nll)}
         else:
             grads, metrics = grads_of(cfg, params, batch)
-        if loop_cfg.grad_compress and err_buf is not None:
-            grads, err_buf = compress_grads(grads, err_buf)
-        params, opt_state = opt_mod.apply_updates(params, grads, opt_state,
-                                                  ocfg)
+        params, opt_state, err_buf = update(cfg, loop_cfg, params, grads,
+                                            opt_state, err_buf)
         return params, opt_state, metrics, err_buf
 
     return train_step

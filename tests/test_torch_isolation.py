@@ -23,7 +23,10 @@
   `examples_torch/train_lm.py` taking a few reduced steps); nor
   does the port's harness (`python -m benchmarks_torch.run --only fig4
   --device cpu` at a cut budget), which loads no `benchmarks` module
-  either.
+  either; nor do the dry run and the roofline (`launch.dryrun`,
+  `launch.roofline_run`, `roofline.{analysis,component_costing,
+  memory_model}`, `launch.specs`, `benchmarks_torch.roofline_bench` and
+  `render_experiments`) tracing cells on meta.
 * No source of the port, nor of its harness (`benchmarks_torch/`) and
   examples (`examples_torch/`), nor `chip_smoke.py`, imports JAX,
   `repro`, the reference's `benchmarks`, `msgpack` or `ml_dtypes`, or
@@ -489,6 +492,45 @@ with contextlib.redirect_stdout(buf):
 lines = buf.getvalue().splitlines()
 ok = lines[0] == "name,us_per_call,derived" and len(lines) > 4
 ok &= all(line.startswith("fig4,") for line in lines[1:])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "benchmarks")
+             or m.startswith(("jax.", "repro.", "benchmarks.")))
+print(json.dumps({{"ok": bool(ok), "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=180, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ok": True, "bad": []}
+
+
+def test_dryrun_and_roofline_load_neither_jax_nor_repro(tmp_path):
+    script = f"""
+import contextlib, io, json, os, sys
+sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+os.chdir({str(tmp_path)!r})
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, roofline_run
+from repro_torch.roofline.component_costing import cost_cell
+from benchmarks_torch import render_experiments, run
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    dryrun.main(["--arch", "rwkv6-7b", "--shape", "long_500k", "--device",
+                 "cpu"])
+    roofline_run.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                       "--quant", "ternary_packed"])
+    run.main(["--only", "roofline", "--device", "cpu"])
+    render_experiments.main("reports/dryrun_torch.jsonl")
+cfg = get_config("hymba-1.5b").reduced()
+shape = ShapeConfig("t", 16, 4, "train")
+whole = dryrun.trace_step(cfg, shape, 2)["cost"]
+parts = cost_cell(cfg, shape, 2)["cost"]
+roof = roofline_run.run_cell("hymba-1.5b", "decode_32k")
+ok = whole.flops == parts.flops and roof["status"] == "ok"
+ok &= '"ternary_matmul": 112' in open(
+    "reports/roofline_torch.jsonl").read()
+ok &= "roofline," in buf.getvalue() and "### Roofline" in buf.getvalue()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro", "benchmarks")
              or m.startswith(("jax.", "repro.", "benchmarks.")))

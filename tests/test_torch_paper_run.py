@@ -1,9 +1,10 @@
 """`python -m benchmarks_torch.run`, the port's CSV runner.
 
-It mirrors `benchmarks/run.py`: the same bench names but `roofline`
-(which waits for the port's LM dry-run launcher and exits 2 naming
-ROADMAP Queue 1 item 4), `name,us_per_call,derived` rows, an error row for
-a group that raises and a non-zero exit at the end.
+It mirrors `benchmarks/run.py`: the same bench names, `roofline` reading
+the port's dry-run records (`reports/dryrun_torch.jsonl`, relative to the
+working directory, as the reference reads its own),
+`name,us_per_call,derived` rows, an error row for a group that raises and
+a non-zero exit at the end.
 """
 import json
 
@@ -17,20 +18,32 @@ from benchmarks import run as R  # noqa: E402
 from benchmarks_torch import run as P  # noqa: E402
 
 
-def test_bench_names_mirror_reference_but_roofline():
-    assert P.BENCHES == [b for b in R.BENCHES if b != "roofline"]
+def test_bench_names_mirror_reference():
+    assert P.BENCHES == R.BENCHES
     for name, mod in P.BENCH_MODULES.items():
         assert mod == R.BENCH_MODULES[name].replace("benchmarks.",
                                                     "benchmarks_torch.")
         assert (H.ROOT / (mod.replace(".", "/") + ".py")).exists()
 
 
-def test_roofline_exits_2_naming_the_roadmap(capsys):
-    with pytest.raises(SystemExit) as exc:
-        P.main(["--only", "table2,roofline", "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr()
-    assert "Queue 1 item 4" in err.err and err.out == ""
+def test_roofline_reads_the_dry_run_records(tmp_path, monkeypatch, capsys):
+    from repro_torch.launch import dryrun
+
+    monkeypatch.chdir(tmp_path)
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
+                 "--device", "cpu"])
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                 "--device", "cpu"])
+    assert (tmp_path / "reports" / "dryrun_torch.jsonl").exists()
+    capsys.readouterr()
+    P.main(["--only", "roofline", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "name,us_per_call,derived" and len(lines) == 3
+    rows = [json.loads(line.split(",", 2)[2]) for line in lines[1:]]
+    assert all(line.startswith("roofline,") for line in lines[1:])
+    assert [(r["shape"], r["status"]) for r in rows] == [
+        ("decode_32k", "ok"), ("long_500k", "skipped")]
+    assert rows[0]["dominant"] == "memory" and rows[0]["fits"] is False
 
 
 def test_unknown_bench_is_refused():
