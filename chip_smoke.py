@@ -3392,7 +3392,9 @@ def wkv_bwd_vs_plain(dev, rng) -> dict:
     `(B, T, H, dh)` bf16 and float32 views (u shared by the batch, views
     off 16-byte boundaries), dh 16 and 64, T of 1, 13, 96 and 256 (the
     training shape among them), decays log-uniform down to 1e-12, with
-    and without an initial state and a gradient on the final state; then
+    and without an initial state and a gradient on the final state; the
+    cluster split at its edges (B H = 1, H = 3 with T = 257, views one
+    element off 16-byte boundaries), cases counted by staging design; then
     `rwkv6_scan` under autograd, which must launch the forward and the
     backward kernel once each and give the backward kernel's gradients."""
     import torch
@@ -3414,6 +3416,17 @@ def wkv_bwd_vs_plain(dev, rng) -> dict:
                 grid.append((torch.bfloat16 if dh == 64 else torch.float32,
                              (2, T, 4, dh), int(state), state, True))
     grid.append((torch.bfloat16, (2, 256, 64, 64), 0, False, True))
+    # the cluster split at its edges: B H = 1 (one cluster), an odd H with
+    # T off the chunk, and views off 16-byte boundaries (bf16 staged by
+    # element loads, f32 by 4-byte cp.async)
+    for offset in (0, 1):
+        for state in (False, True):
+            grid.append((torch.bfloat16, (1, 256, 1, 64), offset, state,
+                         True))
+            grid.append((torch.bfloat16, (1, 257, 3, 64), offset, state,
+                         True))
+        grid.append((torch.float32, (1, 257, 3, 64), offset, True, True))
+    stats["designs"] = {d: 0 for d in CW.DESIGNS}
     for dtype, (B, T, H, dh), offset, state, shared_u in grid:
         r, k, v, w, u = model_layout(rng, dev, B, T, H, dh, dtype, offset)
         if not shared_u:
@@ -3421,6 +3434,7 @@ def wkv_bwd_vs_plain(dev, rng) -> dict:
         s0 = t(rng.standard_normal((B, H, dh, dh))) if state else None
         ds = t(rng.standard_normal((B, H, dh, dh))) if state else None
         dy = t(rng.standard_normal((B, T, H, dh)))
+        stats["designs"][CW.plan_bwd(r, k, v, w, u, dy).design] += 1
         wkv_bwd_check((r, k, v, w, u, s0), dy, ds, stats)
     # the autograd Function on the card: one forward and one backward
     # launch, and the backward kernel's gradients
@@ -3701,7 +3715,25 @@ def training_phase(dev, smi: str) -> dict:
         bwd["forward_ms"] = gpu_ms(lambda: CW.launch(r, k, v, w, u, None,
                                                      ckpt=ck),
                                    TIMED_REPS, True)
+        # the split: CTAs a row (P), CTAs in all, and what the card holds
+        plan = CW.plan_bwd(r, k, v, w, u, dy, ck)
+        geo = CW.card_geometry(dh, plan.bf16, plan.design)
+        bwd |= {"P": plan.clusters, "ctas": plan.blocks,
+                "threads_per_cta": plan.threads,
+                "ctas_per_sm": geo["ctas_per_sm"],
+                "warps_per_sm": geo["ctas_per_sm"] * plan.threads // 32,
+                "max_active_clusters": geo["max_active_clusters"],
+                "smem_bytes": geo["smem_bytes"],
+                "registers": geo["registers"],
+                "local_bytes": geo["local_bytes"], "design": plan.design}
         say("timing_rwkv_bwd", **bwd)
+        if geo["smem_bytes"] != plan.smem_bytes or geo["local_bytes"]:
+            fail(f"rwkv6_scan_bwd: the card's shared memory "
+                 f"{geo['smem_bytes']} B against the plan's "
+                 f"{plan.smem_bytes} B, {geo['local_bytes']} B spilled")
+        if bwd["warps_per_sm"] < 8:
+            fail(f"rwkv6_scan_bwd: {bwd['warps_per_sm']} warps an SM at "
+                 "the training shape, 8 asked")
         out["rwkv"], out["bwd_timing"] = row, bwd
         del params, opt, err, trainer, captured, r, k, v, w, ck, dy
         torch.cuda.empty_cache()
@@ -4337,6 +4369,7 @@ def main() -> int:
              f"{bstats['autograd_launches']} (one forward and one backward "
              "expected) or its gradients differ from the backward kernel's")
     for name, counts in (("rwkv6_scan", wstats["designs"]),
+                         ("rwkv6_scan_bwd", bstats["designs"]),
                          ("packed_popcount", pstats["designs"]),
                          ("packed_popcount loads", {
                              k: pstats[k] for k in ("vec16", "word_loads")})):
@@ -4763,11 +4796,16 @@ def main() -> int:
          "bound_ms": train["bwd_timing"]["bound_ms"],
          "bound_by": train["bwd_timing"]["bound_by"], "library_ms": None,
          "cases": bstats["cases"], "mismatches": bstats["mismatches"],
-         "design": "a block a (b, h) row; the gradient of the state an R x C "
-                   "tile a thread in registers; 16-token chunks recomputed "
-                   "forward from the forward's checkpoints into a per-row "
-                   "scratch, then walked in reverse; row sums by an xor "
-                   "butterfly, dv and du in a fixed order, no atomics",
+         "design": "a cluster of CTAs a (b, h) row, each owning a share "
+                   "of the value columns; the gradient of the state a 2 x "
+                   "C tile a thread in registers; each 16-token chunk "
+                   "recomputed from the forward's checkpoints into shared "
+                   "memory half a chunk at a time, then walked in reverse; "
+                   "row sums over lanes, then over the cluster's CTAs in "
+                   "rank order through distributed shared memory; dv and "
+                   "du in a fixed order, no atomics, no device scratch",
+         "split": {k: train["bwd_timing"][k] for k in (
+             "P", "ctas", "ctas_per_sm", "warps_per_sm")},
          "shape": "rwkv6-7b training microbatch: (2, 256, 64, 64) bf16, "
                   "u (64, 64)"},
     ]

@@ -556,9 +556,9 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
 //   du[i]  += r_i k_i e_t
 //   G_{t-1}[i][j] = w_i G_t[i][j] + r_i dy_j
 // and ds0 = G_0.  S_{t-1} is never recovered by dividing by the decay: the
-// forward kept the state every CK tokens (`ck`), and each chunk of CK
-// tokens, last chunk first, is recomputed forward from its checkpoint into
-// a per-row scratch (`hist`, CK states), then walked in reverse.
+// forward kept the state every CK tokens (`ck`), and each interval of CK
+// tokens, last first, is recomputed forward from its checkpoint, then
+// walked in reverse.
 //
 // Layouts: r, k, v, w as the forward reads them (strided (B, T, H, DH)
 // views, steps in `steps`); u as the forward's; dy, dr, dk, dv, dw
@@ -566,30 +566,61 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
 // (summed in float32, rounded once); ck (B, H, ceil(T / CK), DH, DH);
 // ds, ds0 (B, H, DH, DH); du (B, H, DH), each row's own bonus gradient
 // (the caller sums it over b for a shared bonus: no float atomics, so two
-// runs give the same bits); hist (B H, CK, DH DH) scratch.
+// runs give the same bits).  No scratch in device memory.
 //
 // What bounds it on this card (roofline/kernel_model.py
 // `wkv_bwd_bound_ms`): per (row, token, i, j) the recompute of the state
 // and the reverse walk's multiply-adds (dr, dw, dk and dv partial sums,
 // G's update), ~13 flops at 67 TFLOP/s float32, against the bytes of r,
-// k, v, w, dy, the checkpoints and the five gradients (the scratch is 64
-// KB a row of DH = 64 at CK = 16, written and read back by the same
-// thread).  rwkv6-7b's training microbatch (B 2, T 256, H 64, DH 64,
-// bf16) is 1.7 GFLOP -> ~26 us against ~84 MB -> ~25 us: the two bounds
-// are close, and the recurrence is sequential in t.
+// k, v, w, dy, the checkpoints and the five gradients, each moved once.
+// rwkv6-7b's training microbatch (B 2, T 256, H 64, DH 64, bf16) is 1.7
+// GFLOP -> ~26 us against ~84 MB -> ~25 us: the two bounds are close, and
+// the recurrence is sequential in t.  Device memory is not what this
+// kernel waits on: it issues the walk's 6 float32 operations per (row,
+// token, i, j), ~1.9 state updates of 2 (the recompute, and the odd
+// states again in the walk), the sums across lanes and the loads and
+// stores of shared memory that feed them.
 //
-// Design (a simple first version): one block a row with the forward's
-// thread geometry (an R x C tile of S and G a thread); G stays in
-// registers for the whole sequence.  A chunk's operands are staged into
-// shared memory as float32 (element loads: no alignment is asked), then
-// c_t and e_t are summed a thread a token, the states recomputed into
-// `hist` (each thread writes and reads back only its own tile, laid out
-// so a warp's accesses are contiguous), and the tokens walked in reverse:
-// the row sums (dr, dk, dw) over a row group's NJ lanes by an xor
-// butterfly, whose result is the same on every lane and every run; dv's
-// key sums go to shared memory and are added over the row groups in a
-// fixed pairwise order after the chunk, as the forward adds y.
+// Design.  A row (b, h) is a cluster of P CTAs (`BwdGeo`: P = 2 at DH =
+// 64, so 256 CTAs at the training shape, two an SM, one wave; P = 1 at
+// DH = 16).  CTA q owns the value columns q JW .. q JW + JW - 1 of S and
+// G (JW = DH / P) and key rows q JW .. of dr, dk, dw and du.  G's update,
+// S's recompute and dv's key sum only ever touch a CTA's own columns;
+// each CTA stages the chunk's whole rows of r, k, w (and its columns of
+// v, dy) and sums c_t itself, in the same order as the others.  A thread
+// keeps a 2 x C tile of G in registers for the whole sequence (key rows
+// 2 g, 2 g + 1; C = 8 float4 columns at DH = 64), four lanes a row pair,
+// 128 threads a CTA (8 warps an SM).  The chunk's recomputed states stay
+// in shared memory (`hist`, each thread's own tile, read back by the same
+// thread): each CK = 16-token interval is walked in two halves of 8
+// tokens -- recompute through the first half without keeping it, keep
+// and walk the later half, then recompute and walk the first -- and only
+// the states before the even tokens are kept; the walk recomputes the
+// one before an odd token from the even one below it, whose operands it
+// loads anyway.  That halves the state's shared-memory traffic and keeps
+// a CTA at 81.5 KB (bf16; 86.7 KB float32).  The walk is pipelined: a
+// token's sums across lanes are interleaved with the next token's
+// multiply-adds.  The row sums over j go in two steps: a thread's C
+// columns, then its row pair's four lanes (jc ^ 1, even lanes keeping row
+// 2 g's, odd ones 2 g + 1's; then jc ^ 2), written a float4 a row (dr,
+// dk, dw) into the CTA's own shared memory (`xch`, two halves in turn);
+// after a cluster barrier, CTA q adds rows q JW .. from CTAs 0 .. P - 1
+// in rank order (the other CTAs' through distributed shared memory), and
+// the CTAs' shares of e_t the same way, adds the u e_t terms and writes.
+// The barrier is arrived at after a walk and waited on only after the
+// next half's recompute.  dv's key sums are halved over the warp's row
+// groups (lanes ^ 4, ^ 8, ^ 16), then added over the warps in order.
+// Every sum has a fixed order and there are no float atomics, so two
+// launches give the same bits.  A chunk's operands are staged one chunk
+// ahead of the walk with `cp.async`, 16-byte pieces where every operand
+// row and token starts on a 16-byte boundary (`VEC`), element copies
+// otherwise (4-byte `cp.async`; bfloat16 loaded and stored, cp.async has
+// no 2-byte piece), into a staging buffer that a prepare pass widens into
+// float32 planes; each thread's pieces follow from its index and
+// compile-time shapes.
 namespace {
+
+constexpr int HALF = CK / 2;  // tokens whose states a walk keeps at once
 
 struct BwdArgs {
   const void* rkv[3];  // r, k, v: float or bfloat16
@@ -602,25 +633,58 @@ struct BwdArgs {
   float* dw;
   float* du;
   float* ds0;
-  float* hist;
   long long sB[4], sT[4];  // r, k, v, w: batch-row and token steps (elements)
   long long u_sb;
   int H, T;
 };
 
+// A row's cluster and a CTA's threads: P CTAs a row, JW value columns
+// (and key rows of dr, dk, dw, du) a CTA, an R x C tile a thread with the
+// NJ column groups as the fastest lanes and the row groups above them;
+// TPT threads a token of EPT elements each in the prepare pass; SPT
+// threads share a column (or key row) in the passes after a walk, PS
+// half-chunk slots each; XT floats a token of the sums the cluster
+// exchanges (dr, dk, dw of every key row a float4, then the CTA's share
+// of e_t).
 template <int DH>
-struct BwdSmem {
-  float x[5][CK][DH];              // r, k, v, w, dy of the chunk's tokens
-  float dvp[CK][Geo<DH>::G][DH];   // each row group's partial dv
-  float u[DH];
-  float c[CK];                     // sum_i r_i u_i k_i
-  float e[CK];                     // sum_j dy_j v_j
+struct BwdGeo {
+  static constexpr int P = DH == 64 ? 2 : 1;
+  static constexpr int JW = DH / P;
+  static constexpr int NJ = 4;
+  static constexpr int R = 2, C = JW / NJ;
+  static constexpr int CV = C / 4;            // float4s of a tile row
+  static constexpr int G = DH / R;            // row groups
+  static constexpr int NT = NJ * G;           // threads a CTA
+  static constexpr int NW = NT / 32;          // warps a CTA
+  static constexpr int TPT = NT / CK;
+  static constexpr int EPT = DH / TPT;
+  static constexpr int SPT = NT / JW;
+  static constexpr int PS = HALF / SPT;
+  static constexpr int XT = 4 * DH + 4;
+  static constexpr int MIN_CTAS = DH == 64 ? 2 : 4;  // an SM, bf16
+  static_assert(C % 4 == 0 && C <= 8 && EPT == 8 && NT % 32 == 0 &&
+                    TPT <= 32 && NT % DH == 0 && NT % JW == 0 &&
+                    HALF % SPT == 0 && JW % EPT == 0,
+                "geometry");
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <int DH, typename T>
+struct BwdSmem {
+  using Gm = BwdGeo<DH>;
+  T x[2][CK][DH];                           // r, k as staged
+  T xv[CK][Gm::JW];                         // v's columns of the CTA
+  float w[CK][DH];                          // w as staged
+  float dy[CK][Gm::JW];                     // dy's columns of the CTA
+  float r_[CK][DH], k_[CK][DH], w_[CK][DH]; // the chunk in float32
+  float v_[CK][Gm::JW], dy_[CK][Gm::JW];
+  float4 hist[HALF / 2][Gm::R][Gm::CV][Gm::NT];  // S before the even slots
+  float xch[2][HALF][Gm::XT];               // the exchanged sums, by turns
+  float dvw[HALF][Gm::NW][Gm::JW];          // each warp's dv
+  float u[DH];
+  float c[CK];                              // sum_i r_i u_i k_i
+  float e[CK];                              // the CTA's share of e_t
+};
+
 template <typename T> __device__ __forceinline__ T narrow(float x);
 template <> __device__ __forceinline__ float narrow<float>(float x) {
   return x;
@@ -630,188 +694,693 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <int DH, typename T>
-__global__ void __launch_bounds__(Geo<DH>::NT)
+// eight consecutive elements of shared memory, widened to float32
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&o)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    o[2 * q] = f.x;
+    o[2 * q + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&o)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Stage tokens [t0, t0 + n) of one operand (element type E, W elements a
+// token) into dst, token t at dst + t W: a thread's 16-byte `cp.async`
+// pieces fixed by its index when VEC, else its elements (column tid % W,
+// every NT / W-th token) by 4-byte `cp.async`, or for bfloat16 loaded
+// together, then stored.
+template <int W, int NT, typename E, bool VEC>
+__device__ __forceinline__ void stage_rows(E* dst, const char* base,
+                                           long long step, int t0, int n) {
+  if constexpr (VEC) {
+    constexpr int EPP = 16 / sizeof(E);  // elements a piece
+    constexpr int PER = W / EPP;         // pieces a token
+    constexpr int ALL = CK * PER;
+#pragma unroll
+    for (int k = 0; k < (ALL + NT - 1) / NT; ++k) {
+      const int p = threadIdx.x + k * NT;
+      const int t = p / PER, i = (p % PER) * EPP;
+      if ((ALL % NT == 0 || p < ALL) && t < n)
+        cp_async16(dst + t * W + i,
+                   base + (t0 + t) * step + i * (int)sizeof(E));
+    }
+  } else {
+    constexpr int TS = NT / W;  // tokens a round
+    static_assert(NT % W == 0 && CK % TS == 0, "whole rounds");
+    const int i = threadIdx.x % W, t1 = threadIdx.x / W;
+    if constexpr (sizeof(E) == 4) {
+#pragma unroll
+      for (int k = 0; k < CK / TS; ++k)
+        if (t1 + k * TS < n)
+          cp_async4(dst + (t1 + k * TS) * W + i,
+                    base + (t0 + t1 + k * TS) * step + i * 4);
+    } else {  // cp.async takes no 2-byte piece
+      E got[CK / TS];
+#pragma unroll
+      for (int k = 0; k < CK / TS; ++k)
+        if (t1 + k * TS < n)
+          got[k] = reinterpret_cast<const E*>(
+              base + (t0 + t1 + k * TS) * step)[i];
+#pragma unroll
+      for (int k = 0; k < CK / TS; ++k)
+        if (t1 + k * TS < n) dst[(t1 + k * TS) * W + i] = got[k];
+    }
+  }
+}
+
+// The cluster barrier in two halves (arrive releases this thread's writes,
+// wait acquires every thread's of the cluster), the CTA's rank in its
+// cluster, and where a shared variable lies in another CTA of the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ const float* map_rank(const float* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
+// A walk token's operands of a thread: r, k, w of its R rows, v and dy of
+// its C columns, and its tile of S_{t-1}.
+template <int CV>
+struct WalkOps {
+  float2 r, k, w;
+  float4 v[CV], d[CV], s[2][CV];
+};
+
+template <int DH, typename T, bool VEC>
+__global__ void __launch_bounds__(BwdGeo<DH>::NT, BwdGeo<DH>::MIN_CTAS)
     rwkv6_scan_bwd_kernel(const BwdArgs a) {
-  using Gm = Geo<DH>;
-  constexpr int R = Gm::R, C = Gm::C, NJ = Gm::NJ, NT = Gm::NT, G = Gm::G;
+  using Gm = BwdGeo<DH>;
+  constexpr int P = Gm::P, JW = Gm::JW, R = Gm::R, C = Gm::C, CV = Gm::CV,
+                NT = Gm::NT, SPT = Gm::SPT, PS = Gm::PS;
+  static_assert(R == 2, "a tile's rows are a float2");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<DH>& sm = *reinterpret_cast<BwdSmem<DH>*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int jc = tid % NJ, g = tid / NJ;
-  const long long row = blockIdx.x;
+  BwdSmem<DH, T>& sm = *reinterpret_cast<BwdSmem<DH, T>*>(smem_raw);
+  const int q = cluster_rank();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int jc = tid % Gm::NJ, g = tid / Gm::NJ;
+  const int i0 = R * g;         // the thread's key rows i0, i0 + 1
+  const int jl = C * jc;        // its first column among the CTA's,
+  const int j0 = q * JW + jl;   // and in the row
+  const int pj = tid % JW, ps0 = tid / JW;  // after a walk: column or
+                                            // key row q JW + pj, slot ps0..
+  const long long row = blockIdx.x / P;
   const long long b = row / a.H;
   const int h = static_cast<int>(row - b * a.H);
   const int nck = (a.T + CK - 1) / CK;
-  auto col = [&](int n) { return Gm::template col<C, NJ>(jc, n); };
   // row (b, h)'s first element and token step in the contiguous tensors
   const long long tok0 = (b * a.T * a.H + h) * DH;
   const long long tstep = static_cast<long long>(a.H) * DH;
-  const T* src[3];
+  const char* base[5];  // r, k, v, w, dy: the staged row's start and step
+  long long step[5];
 #pragma unroll
-  for (int x = 0; x < 3; ++x)
-    src[x] = static_cast<const T*>(a.rkv[x]) + b * a.sB[x] +
-             static_cast<long long>(h) * DH;
-  const float* wsrc = a.w + b * a.sB[3] + static_cast<long long>(h) * DH;
+  for (int x = 0; x < 4; ++x) {
+    const int es = x < 3 ? (int)sizeof(T) : 4;
+    base[x] = static_cast<const char*>(x < 3 ? a.rkv[x] : a.w) +
+              (b * a.sB[x] + static_cast<long long>(h) * DH +
+               (x == 2 ? q * JW : 0)) *
+                  es;
+    step[x] = a.sT[x] * es;
+  }
+  base[4] = reinterpret_cast<const char*>(a.dy + tok0 + q * JW);
+  step[4] = tstep * 4;
   T* dr = static_cast<T*>(a.d_rkv[0]) + tok0;
   T* dk = static_cast<T*>(a.d_rkv[1]) + tok0;
-  T* dv = static_cast<T*>(a.d_rkv[2]) + tok0;
+  T* dv = static_cast<T*>(a.d_rkv[2]) + tok0 + q * JW;
   float* dw = a.dw + tok0;
-  const float* dy = a.dy + tok0;
-  float* hist = a.hist + row * CK * DH * DH;
-  if (tid < DH) sm.u[tid] = a.u[b * a.u_sb + static_cast<long long>(h) * DH +
-                                tid];
+
+  auto stage_chunk = [&](int c) {
+    const int t0 = c * CK, n = min(CK, a.T - t0);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      stage_rows<DH, NT, T, VEC>(&sm.x[x][0][0], base[x], step[x], t0, n);
+    stage_rows<JW, NT, T, VEC>(&sm.xv[0][0], base[2], step[2], t0, n);
+    stage_rows<DH, NT, float, VEC>(&sm.w[0][0], base[3], step[3], t0, n);
+    stage_rows<JW, NT, float, VEC>(&sm.dy[0][0], base[4], step[4], t0, n);
+    cp_async_commit();
+  };
+  // the thread's tile (rows i0.., columns j0..) of a (DH, DH) state
+  auto load_tile = [&](const float* s, float (&X)[R][C]) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float* p = s + (i0 + m) * DH + j0;
+#pragma unroll
+      for (int n = 0; n < C; n += 4) {
+        if constexpr (VEC) {
+          const float4 q4 = *reinterpret_cast<const float4*>(p + n);
+          X[m][n] = q4.x; X[m][n + 1] = q4.y;
+          X[m][n + 2] = q4.z; X[m][n + 3] = q4.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) X[m][n + k] = p[n + k];
+        }
+      }
+    }
+  };
+  // The prepare pass: thread (tt, l) widens elements l EPT .. of token
+  // tt's r, k, w (and of the CTA's columns of v, dy) into the float32
+  // planes and adds its shares of c_t and of the CTA's e_t; the TPT
+  // threads of a token add their shares in a fixed xor order (c_t the same
+  // in every CTA of the cluster).
+  auto prepare = [&]() {
+    const int tt = tid / Gm::TPT, l = tid % Gm::TPT, i = l * Gm::EPT;
+    float rf[8], kf[8], wf[8];
+    load8(&sm.x[0][tt][i], rf);
+    load8(&sm.x[1][tt][i], kf);
+    load8(&sm.w[tt][i], wf);
+    float cs = 0.f, es = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) cs = fmaf(rf[n], sm.u[i + n] * kf[n], cs);
+    store8(&sm.r_[tt][i], rf);
+    store8(&sm.k_[tt][i], kf);
+    store8(&sm.w_[tt][i], wf);
+    if (i < JW) {
+      float vf[8], df[8];
+      load8(&sm.xv[tt][i], vf);
+      load8(&sm.dy[tt][i], df);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) es = fmaf(df[n], vf[n], es);
+      store8(&sm.v_[tt][i], vf);
+      store8(&sm.dy_[tt][i], df);
+    }
+#pragma unroll
+    for (int o = 1; o < Gm::TPT; o *= 2) {
+      cs += __shfl_xor_sync(0xffffffffu, cs, o);
+      es += __shfl_xor_sync(0xffffffffu, es, o);
+    }
+    if (l == 0) {
+      sm.c[tt] = cs;
+      sm.e[tt] = es;
+    }
+  };
+  // S_t from S_{t-1} with token t's k, w (rows i0..) and v (columns jl..):
+  // the forward's arithmetic, so the states are its bits.  A token's
+  // operands are loaded before the previous state is kept, so the loads
+  // never wait behind the stores.
+  struct StepOps {
+    float2 k, w;
+    float4 v[CV];
+  };
+  auto step_ops = [&](int t) {
+    StepOps o;
+    o.k = *reinterpret_cast<const float2*>(&sm.k_[t][i0]);
+    o.w = *reinterpret_cast<const float2*>(&sm.w_[t][i0]);
+#pragma unroll
+    for (int n = 0; n < CV; ++n)
+      o.v[n] = *reinterpret_cast<const float4*>(&sm.v_[t][jl + 4 * n]);
+    return o;
+  };
+  auto advance = [&](const StepOps& o, float (&S)[R][C]) {
+    const float kk[2] = {o.k.x, o.k.y}, ww[2] = {o.w.x, o.w.y};
+    float vv[C];
+#pragma unroll
+    for (int n = 0; n < CV; ++n) {
+      vv[4 * n] = o.v[n].x; vv[4 * n + 1] = o.v[n].y;
+      vv[4 * n + 2] = o.v[n].z; vv[4 * n + 3] = o.v[n].w;
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int n = 0; n < C; ++n) S[m][n] = fmaf(ww[m], S[m][n], kk[m] * vv[n]);
+  };
+  auto keep = [&](int s, const float (&S)[R][C]) {
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int n = 0; n < CV; ++n)
+        sm.hist[s][m][n][tid] = make_float4(S[m][4 * n], S[m][4 * n + 1],
+                                            S[m][4 * n + 2], S[m][4 * n + 3]);
+  };
+  // From the checkpoint, advance through `skip` tokens (0 or HALF) without
+  // keeping them, then keep the states before the even ones of the next n
+  // tokens (the walk recomputes those before the odd ones).
+  auto recompute = [&](const float (&ck)[R][C], int skip, int n) {
+    float S[R][C];
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int k = 0; k < C; ++k) S[m][k] = ck[m][k];
+    if (skip) {
+#pragma unroll
+      for (int t = 0; t < HALF; ++t) advance(step_ops(t), S);
+    }
+    StepOps o[2];
+    o[0] = step_ops(skip);
+    auto kept = [&](int s, int nn, int cur) {
+      o[cur ^ 1] = step_ops(skip + min(s + 1, nn - 1));
+      if (!(s & 1)) keep(s / 2, S);
+      if (s + 1 < nn) advance(o[cur], S);
+    };
+    if (n == HALF) {
+#pragma unroll
+      for (int s = 0; s < HALF; ++s) kept(s, HALF, s & 1);
+    } else {
+      for (int s = 0; s < n; s += 2) {
+        kept(s, n, 0);
+        if (s + 1 < n) kept(s + 1, n, 1);
+      }
+    }
+  };
 
   float Gt[R][C];
-  const float* ds = a.ds ? a.ds + row * DH * DH : nullptr;
+  if (a.ds) {
+    load_tile(a.ds + row * DH * DH, Gt);
+  } else {
 #pragma unroll
-  for (int m = 0; m < R; ++m)
+    for (int m = 0; m < R; ++m)
 #pragma unroll
-    for (int n = 0; n < C; ++n)
-      Gt[m][n] = ds ? ds[(g * R + m) * DH + col(n)] : 0.f;
-  float du = 0.f;
+      for (int n = 0; n < C; ++n) Gt[m][n] = 0.f;
+  }
+  auto load_ops = [&](int t, WalkOps<CV>& o) {
+    o.r = *reinterpret_cast<const float2*>(&sm.r_[t][i0]);
+    o.k = *reinterpret_cast<const float2*>(&sm.k_[t][i0]);
+    o.w = *reinterpret_cast<const float2*>(&sm.w_[t][i0]);
+#pragma unroll
+    for (int n = 0; n < CV; ++n) {
+      o.v[n] = *reinterpret_cast<const float4*>(&sm.v_[t][jl + 4 * n]);
+      o.d[n] = *reinterpret_cast<const float4*>(&sm.dy_[t][jl + 4 * n]);
+    }
+  };
+  // the state before slot s: kept for an even slot; for an odd one, the
+  // even slot's state advanced by the even slot's token (`even`, whose
+  // operands and state are loaded too)
+  auto load_state = [&](int s, WalkOps<CV>& o) {
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int n = 0; n < CV; ++n) o.s[m][n] = sm.hist[s / 2][m][n][tid];
+  };
+  auto advance_state = [&](const WalkOps<CV>& even, WalkOps<CV>& o) {
+    float S[R][C];
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int n = 0; n < CV; ++n) {
+        S[m][4 * n] = even.s[m][n].x; S[m][4 * n + 1] = even.s[m][n].y;
+        S[m][4 * n + 2] = even.s[m][n].z; S[m][4 * n + 3] = even.s[m][n].w;
+      }
+    StepOps st;
+    st.k = even.k;
+    st.w = even.w;
+#pragma unroll
+    for (int n = 0; n < CV; ++n) st.v[n] = even.v[n];
+    advance(st, S);
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int n = 0; n < CV; ++n)
+        o.s[m][n] = make_float4(S[m][4 * n], S[m][4 * n + 1],
+                                S[m][4 * n + 2], S[m][4 * n + 3]);
+  };
+  auto unpack = [](const float4 (&q)[CV], float (&f)[C]) {
+#pragma unroll
+    for (int n = 0; n < CV; ++n) {
+      f[4 * n] = q[n].x; f[4 * n + 1] = q[n].y;
+      f[4 * n + 2] = q[n].z; f[4 * n + 3] = q[n].w;
+    }
+  };
+  // The reverse walk, one token (slot s of the half, token t of the
+  // chunk) at a time: the partial sums over the thread's tile, then
+  // G_{t-1}; then the sums across lanes, written for the passes after the
+  // walk.  The row sums (dr, dk, dw of rows i0, i0 + 1) are added over
+  // lane jc ^ 1 (even lanes keep row i0's, odd i0 + 1's), then jc ^ 2, and
+  // written by lanes jc = 0, 1 into xch[buf]; dv's sums over the warp's 8
+  // row groups by halving (lanes ^ 4, ^ 8, ^ 16: each keeps half its
+  // columns and adds the other lane's) into dvw; lane 0 copies the CTA's
+  // share of e_t.  The shuffles of token s are interleaved with the
+  // multiply-adds of token s - 1 (two rows, one between each level), so
+  // that neither waits on the other.
+  struct Part {
+    float x[6];  // dr, dk, dw of row i0, then of row i0 + 1
+    float pv[C];
+  };
+  auto compute_row = [&](int m, const WalkOps<CV>& o, Part& p) {
+    float vv[C], dd[C], sp[C];
+    unpack(o.v, vv);
+    unpack(o.d, dd);
+    unpack(o.s[m], sp);
+    const float rm = m ? o.r.y : o.r.x, km = m ? o.k.y : o.k.x;
+    const float wm = m ? o.w.y : o.w.x;
+    float pr = 0.f, pk = 0.f, pw = 0.f;
+#pragma unroll
+    for (int n = 0; n < C; ++n) {
+      pr = fmaf(dd[n], sp[n], pr);
+      pw = fmaf(Gt[m][n], sp[n], pw);
+      pk = fmaf(Gt[m][n], vv[n], pk);
+      p.pv[n] = m ? fmaf(Gt[m][n], km, p.pv[n]) : Gt[m][n] * km;
+    }
+#pragma unroll
+    for (int n = 0; n < C; ++n) Gt[m][n] = fmaf(wm, Gt[m][n], rm * dd[n]);
+    p.x[3 * m] = pr;
+    p.x[3 * m + 1] = pk;
+    p.x[3 * m + 2] = pw;
+  };
+  // keep half of pv's first 2 cnt columns, adding lane ^ bit's other half
+  auto halve = [&](float (&pv)[C], int cnt, int bit) {
+    const bool hi = lane & bit;
+#pragma unroll
+    for (int n = 0; n < C / 2; ++n)
+      if (n < cnt) {
+        const float give = hi ? pv[n] : pv[n + cnt];
+        pv[n] = (hi ? pv[n + cnt] : pv[n]) +
+                __shfl_xor_sync(0xffffffffu, give, bit);
+      }
+  };
+  auto reduce1 = [&](Part& p) {
+    const bool odd = jc & 1;
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      const float give = odd ? p.x[n] : p.x[n + 3];
+      p.x[n] = (odd ? p.x[n + 3] : p.x[n]) +
+               __shfl_xor_sync(0xffffffffu, give, 1);
+    }
+    halve(p.pv, C / 2, 4);
+  };
+  auto reduce2 = [&](Part& p) {
+#pragma unroll
+    for (int n = 0; n < 3; ++n)
+      p.x[n] += __shfl_xor_sync(0xffffffffu, p.x[n], 2);
+    halve(p.pv, C / 4, 8);
+  };
+  auto reduce3 = [&](Part& p, int t, int s, int buf) {
+    if constexpr (C == 8)
+      halve(p.pv, 1, 16);
+    else
+      p.pv[0] += __shfl_xor_sync(0xffffffffu, p.pv[0], 16);
+    float* xs = &sm.xch[buf][s][0];
+    if (jc < 2)
+      *reinterpret_cast<float4*>(xs + 4 * (i0 + jc)) =
+          make_float4(p.x[0], p.x[1], p.x[2], 0.f);
+    if (tid == 0) xs[4 * DH] = sm.e[t];
+    const int col = (lane & 4 ? C / 2 : 0) + (lane & 8 ? C / 4 : 0) +
+                    (C == 8 && (lane & 16) ? 1 : 0);
+    if (C == 8 || !(lane & 16)) sm.dvw[s][warp][jl + col] = p.pv[0];
+  };
+  // Walk tokens base + n - 1 .. base of the chunk (states of the even
+  // slots in hist[0, n / 2)).  A full half is pipelined: an odd token's
+  // operands are loaded with the even token's below it (and that token's
+  // kept state), while the previous token's sums are reduced.
+  auto walk = [&](int base_t, int n, int buf) {
+    Part p[2];
+    if (n == HALF) {
+      WalkOps<CV> oo, oe;  // the odd and even tokens of a pair
+      auto load_pair = [&](int s) {  // s odd
+        load_ops(base_t + s, oo);
+        load_ops(base_t + s - 1, oe);
+        load_state(s - 1, oe);
+      };
+      load_pair(HALF - 1);
+      advance_state(oe, oo);
+      compute_row(0, oo, p[0]);
+      compute_row(1, oo, p[0]);
+#pragma unroll
+      for (int s = HALF - 1; s >= 0; --s) {
+        const int cur = (HALF - 1 - s) & 1;
+        const bool odd_next = s > 0 && ((s - 1) & 1);
+        if (odd_next) load_pair(s - 1);
+        reduce1(p[cur]);
+        if (odd_next) advance_state(oe, oo);
+        const WalkOps<CV>& nx = odd_next ? oo : oe;
+        if (s > 0) compute_row(0, nx, p[cur ^ 1]);
+        reduce2(p[cur]);
+        if (s > 0) compute_row(1, nx, p[cur ^ 1]);
+        reduce3(p[cur], base_t + s, s, buf);
+      }
+    } else {
+      for (int s = n - 1; s >= 0; --s) {
+        WalkOps<CV> o;
+        load_ops(base_t + s, o);
+        if (s & 1) {
+          WalkOps<CV> even;
+          load_ops(base_t + s - 1, even);
+          load_state(s - 1, even);
+          advance_state(even, o);
+        } else {
+          load_state(s, o);
+        }
+        compute_row(0, o, p[0]);
+        compute_row(1, o, p[0]);
+        reduce1(p[0]);
+        reduce2(p[0]);
+        reduce3(p[0], base_t + s, s, buf);
+      }
+    }
+  };
 
+  // After a walk: dv of the CTA's column pj at the thread's slots (the
+  // warps' sums in order, then c_t dy_j), and the plane terms its key row
+  // q JW + pj needs once the cluster's sums are in.  The dv values are
+  // stored after the cluster barrier is arrived at (`store_dv`), so that
+  // the barrier's release does not wait on them.
+  float pre[PS][3];  // u_i k_i, r_i u_i, r_i k_i at the slots
+  float dvs[PS];
+  auto finish_dv = [&](int base_t, int n) {
+#pragma unroll
+    for (int ps = 0; ps < PS; ++ps) {
+      const int s = ps0 + ps * SPT, t = base_t + s;
+      if (s < n) {
+        float p = sm.dvw[s][0][pj];
+#pragma unroll
+        for (int w = 1; w < Gm::NW; ++w) p += sm.dvw[s][w][pj];
+        dvs[ps] = fmaf(sm.c[t], sm.dy_[t][pj], p);
+        const int i = q * JW + pj;
+        const float ui = sm.u[i], ri = sm.r_[t][i], ki = sm.k_[t][i];
+        pre[ps][0] = ui * ki;
+        pre[ps][1] = ri * ui;
+        pre[ps][2] = ri * ki;
+      }
+    }
+  };
+  auto store_dv = [&](int t0, int base_t, int n) {
+#pragma unroll
+    for (int ps = 0; ps < PS; ++ps) {
+      const int s = ps0 + ps * SPT;
+      if (s < n) dv[(t0 + base_t + s) * tstep + pj] = narrow<T>(dvs[ps]);
+    }
+  };
+  // Once every CTA's sums of a half are in: dr, dk, dw of key row q JW +
+  // pj at the thread's slots, the CTAs' sums (and e_t's shares) added in
+  // rank order, and this thread's share of du.
+  float du = 0.f;
+  const float* xch_of[P];  // every CTA's xch, as this thread reaches it
+#pragma unroll
+  for (int rk = 0; rk < P; ++rk) xch_of[rk] = map_rank(&sm.xch[0][0][0], rk);
+  auto finish_rows = [&](int t0, int base_t, int n, int buf) {
+    const int i = q * JW + pj;
+#pragma unroll
+    for (int ps = 0; ps < PS; ++ps) {
+      const int s = ps0 + ps * SPT;
+      if (s < n) {
+        float acc[3] = {0.f, 0.f, 0.f}, e = 0.f;
+#pragma unroll
+        for (int rk = 0; rk < P; ++rk) {
+          const float* xr =
+              (rk == q ? &sm.xch[0][0][0] : xch_of[rk]) +
+              (buf * HALF + s) * Gm::XT;
+          const float4 x4 = *reinterpret_cast<const float4*>(xr + 4 * i);
+          acc[0] += x4.x;
+          acc[1] += x4.y;
+          acc[2] += x4.z;
+          e += xr[4 * DH];
+        }
+        const long long at = (t0 + base_t + s) * tstep + i;
+        dr[at] = narrow<T>(fmaf(pre[ps][0], e, acc[0]));
+        dk[at] = narrow<T>(fmaf(pre[ps][1], e, acc[1]));
+        dw[at] = acc[2];
+        du = fmaf(pre[ps][2], e, du);
+      }
+    }
+  };
+  // A half's row sums are finished after the next half's recompute: the
+  // cluster barrier arrived at after a walk is waited on only then.
+  bool pending = false;
+  int p_t0 = 0, p_base = 0, p_n = 0, p_buf = 0, buf = 0;
+  auto finish_pending = [&]() {
+    if (pending) {
+      cluster_wait();  // every CTA's sums of the pending half are written
+      finish_rows(p_t0, p_base, p_n, p_buf);
+      pending = false;
+    }
+  };
+  auto half = [&](int t0, int base_t, int n) {
+    finish_pending();
+    walk(base_t, n, buf);
+    __syncthreads();  // every warp's dv sums of the half are written
+    finish_dv(base_t, n);
+    cluster_arrive();
+    store_dv(t0, base_t, n);
+    pending = true;
+    p_t0 = t0;
+    p_base = base_t;
+    p_n = n;
+    p_buf = buf;
+    buf ^= 1;
+  };
+
+  if (nck > 0) stage_chunk(nck - 1);
+  if (tid < DH)
+    sm.u[tid] = a.u[b * a.u_sb + static_cast<long long>(h) * DH + tid];
   for (int c = nck - 1; c >= 0; --c) {
     const int t0 = c * CK, cnt = min(CK, a.T - t0);
-    __syncthreads();  // the previous chunk's shared data is read
-    for (int e = tid; e < cnt * DH; e += NT) {
-      const int t = e / DH, i = e - t * DH;
-      const long long tt = t0 + t;
-#pragma unroll
-      for (int x = 0; x < 3; ++x)
-        sm.x[x][t][i] = widen(src[x][tt * a.sT[x] + i]);
-      sm.x[3][t][i] = wsrc[tt * a.sT[3] + i];
-      sm.x[4][t][i] = dy[tt * tstep + i];
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c staged; chunk c + 1's planes all read
+    prepare();
+    __syncthreads();  // the planes, c_t and e_t written; staging free
+    float ck[R][C];
+    load_tile(a.ck + (row * nck + c) * DH * DH, ck);
+    if (cnt > HALF) {  // the later half first
+      recompute(ck, HALF, cnt - HALF);
+      half(t0, HALF, cnt - HALF);
     }
-    __syncthreads();  // the chunk is staged
-    if (tid < cnt) {
-      float cs = 0.f, es = 0.f;
-      for (int i = 0; i < DH; ++i) {
-        cs = fmaf(sm.x[0][tid][i], sm.u[i] * sm.x[1][tid][i], cs);
-        es = fmaf(sm.x[4][tid][i], sm.x[2][tid][i], es);
-      }
-      sm.c[tid] = cs;
-      sm.e[tid] = es;
-    }
-    {  // recompute S_{t-1} for the chunk's tokens from its checkpoint
-      float S[R][C];
-      const float* ckp = a.ck + (row * nck + c) * DH * DH;
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-#pragma unroll
-        for (int n = 0; n < C; ++n) S[m][n] = ckp[(g * R + m) * DH + col(n)];
-      for (int t = 0; t < cnt; ++t) {
-        float* ht = hist + t * DH * DH;
-#pragma unroll
-        for (int m = 0; m < R; ++m)
-#pragma unroll
-          for (int n = 0; n < C; ++n) ht[(m * C + n) * NT + tid] = S[m][n];
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          const float wi = sm.x[3][t][g * R + m], ki = sm.x[1][t][g * R + m];
-#pragma unroll
-          for (int n = 0; n < C; ++n)
-            S[m][n] = fmaf(wi, S[m][n], ki * sm.x[2][t][col(n)]);
-        }
-      }
-    }
-    __syncthreads();  // c_t and e_t are written
-
-    for (int t = cnt - 1; t >= 0; --t) {
-      const float* ht = hist + t * DH * DH;
-      float rr[R], kk[R], ww[R], vv[C], dd[C];
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        rr[m] = sm.x[0][t][g * R + m];
-        kk[m] = sm.x[1][t][g * R + m];
-        ww[m] = sm.x[3][t][g * R + m];
-      }
-#pragma unroll
-      for (int n = 0; n < C; ++n) {
-        vv[n] = sm.x[2][t][col(n)];
-        dd[n] = sm.x[4][t][col(n)];
-      }
-      float pr[R], pk[R], pw[R], pv[C];
-#pragma unroll
-      for (int m = 0; m < R; ++m) pr[m] = pk[m] = pw[m] = 0.f;
-#pragma unroll
-      for (int n = 0; n < C; ++n) pv[n] = 0.f;
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-#pragma unroll
-        for (int n = 0; n < C; ++n) {
-          const float sp = ht[(m * C + n) * NT + tid];
-          pr[m] = fmaf(dd[n], sp, pr[m]);
-          pw[m] = fmaf(Gt[m][n], sp, pw[m]);
-          pk[m] = fmaf(Gt[m][n], vv[n], pk[m]);
-          pv[n] = fmaf(Gt[m][n], kk[m], pv[n]);
-        }
-      // the row sums over the NJ lanes of the row group
-#pragma unroll
-      for (int o = 1; o < NJ; o *= 2)
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          pr[m] += __shfl_xor_sync(0xffffffffu, pr[m], o);
-          pk[m] += __shfl_xor_sync(0xffffffffu, pk[m], o);
-          pw[m] += __shfl_xor_sync(0xffffffffu, pw[m], o);
-        }
-      const float et = sm.e[t];
-      const long long at = (t0 + t) * tstep;
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-        if (m == jc) {  // lane m of the group writes row g R + m
-          const int i = g * R + m;
-          dr[at + i] = narrow<T>(fmaf(sm.u[i] * kk[m], et, pr[m]));
-          dk[at + i] = narrow<T>(fmaf(rr[m] * sm.u[i], et, pk[m]));
-          dw[at + i] = pw[m];
-        }
-#pragma unroll
-      for (int n = 0; n < C; ++n) sm.dvp[t][g][col(n)] = pv[n];
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-#pragma unroll
-        for (int n = 0; n < C; ++n)
-          Gt[m][n] = fmaf(ww[m], Gt[m][n], rr[m] * dd[n]);
-    }
-    __syncthreads();  // every row group's dv partial sums are written
-    for (int e = tid; e < cnt * DH; e += NT) {
-      const int t = e / DH, j = e - t * DH;
-      float p[G];
-#pragma unroll
-      for (int q = 0; q < G; ++q) p[q] = sm.dvp[t][q][j];
-#pragma unroll
-      for (int span = 1; span < G; span *= 2)
-#pragma unroll
-        for (int q = 0; q < G; q += 2 * span) p[q] += p[q + span];
-      dv[(t0 + t) * tstep + j] = narrow<T>(fmaf(sm.c[t], sm.x[4][t][j], p[0]));
-    }
-    if (tid < DH)
-      for (int t = cnt - 1; t >= 0; --t)
-        du = fmaf(sm.x[0][t][tid] * sm.x[1][t][tid], sm.e[t], du);
+    // chunk c - 1 lands while the first half is walked; staged only after
+    // the later half's barrier arrive, which would wait on its loads
+    if (c > 0) stage_chunk(c - 1);
+    recompute(ck, 0, min(cnt, HALF));
+    half(t0, 0, min(cnt, HALF));
   }
+  finish_pending();
+  cluster_arrive();
+  cluster_wait();  // no CTA leaves while another reads its sums
   float* so = a.ds0 + row * DH * DH;
 #pragma unroll
-  for (int m = 0; m < R; ++m)
+  for (int m = 0; m < R; ++m) {
+    float* p = so + (i0 + m) * DH + j0;
 #pragma unroll
-    for (int n = 0; n < C; ++n) so[(g * R + m) * DH + col(n)] = Gt[m][n];
-  if (tid < DH) a.du[row * DH + tid] = du;
+    for (int n = 0; n < C; n += 4) {
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(p + n) = make_float4(
+            Gt[m][n], Gt[m][n + 1], Gt[m][n + 2], Gt[m][n + 3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p[n + k] = Gt[m][n + k];
+      }
+    }
+  }
+  // du of key row q JW + pj: the SPT threads' shares in order
+  float* dus = &sm.dvw[0][0][0];
+  dus[ps0 * JW + pj] = du;
+  __syncthreads();
+  if (tid < JW) {
+    float sum = dus[tid];
+#pragma unroll
+    for (int k = 1; k < SPT; ++k) sum += dus[k * JW + tid];
+    a.du[row * DH + q * JW + tid] = sum;
+  }
 }
 
-template <int DH, typename T>
+template <int DH, typename T, bool VEC>
+cudaError_t bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                       int BH, cudaStream_t s) {
+  using Gm = BwdGeo<DH>;
+  constexpr int bytes = static_cast<int>(sizeof(BwdSmem<DH, T>));
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = Gm::P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(BH * Gm::P));
+  cfg.blockDim = dim3(Gm::NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaFuncSetAttribute(rwkv6_scan_bwd_kernel<DH, T, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int DH, typename T, bool VEC>
 int launch_bwd(const BwdArgs& a, int BH, cudaStream_t s) {
-  constexpr int bytes = static_cast<int>(sizeof(BwdSmem<DH>));
-  const cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_bwd_kernel<DH, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_config<DH, T, VEC>(cfg, attr, BH, s);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, rwkv6_scan_bwd_kernel<DH, T, VEC>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rwkv6_scan_bwd_kernel<DH, T><<<BH, Geo<DH>::NT, bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// P, threads a CTA, dynamic shared memory, CTAs an SM holds, clusters the
+// card holds at once, registers a thread, local memory a thread (spills).
+template <int DH, typename T, bool VEC>
+int bwd_geometry(int* out) {
+  auto kern = rwkv6_scan_bwd_kernel<DH, T, VEC>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_config<DH, T, VEC>(cfg, attr, 1, nullptr);
+  int per_sm = 0, clusters = 0;
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, BwdGeo<DH>::NT, cfg.dynamicSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = BwdGeo<DH>::P;
+  out[1] = BwdGeo<DH>::NT;
+  out[2] = static_cast<int>(cfg.dynamicSmemBytes);
+  out[3] = per_sm;
+  out[4] = clusters;
+  out[5] = fa.numRegs;
+  out[6] = static_cast<int>(fa.localSizeBytes);
+  return 0;
+}
+
+template <int DH, typename T>
+int bwd_dispatch(const BwdArgs* a, int BH, bool vec, cudaStream_t s,
+                 int* out) {
+  if (out) return vec ? bwd_geometry<DH, T, true>(out)
+                      : bwd_geometry<DH, T, false>(out);
+  return vec ? launch_bwd<DH, T, true>(*a, BH, s)
+             : launch_bwd<DH, T, false>(*a, BH, s);
+}
+
 template <int DH>
-int launch_bwd(const BwdArgs& a, int BH, bool bf16, cudaStream_t s) {
-  return bf16 ? launch_bwd<DH, __nv_bfloat16>(a, BH, s)
-              : launch_bwd<DH, float>(a, BH, s);
+int bwd_dispatch(const BwdArgs* a, int BH, bool bf16, bool vec,
+                 cudaStream_t s, int* out) {
+  return bf16 ? bwd_dispatch<DH, __nv_bfloat16>(a, BH, vec, s, out)
+              : bwd_dispatch<DH, float>(a, BH, vec, s, out);
+}
+
+int bwd_dispatch(const BwdArgs* a, int BH, int DH, int bf16, int vec16,
+                 cudaStream_t s, int* out) {
+  switch (DH) {
+    case 16: return bwd_dispatch<16>(a, BH, bf16 != 0, vec16 != 0, s, out);
+    case 64: return bwd_dispatch<64>(a, BH, bf16 != 0, vec16 != 0, s, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -819,17 +1388,19 @@ int launch_bwd(const BwdArgs& a, int BH, bool bf16, cudaStream_t s) {
 // Plain C entry point of the backward pass, bound with ctypes.  Pointers are
 // device pointers in the layouts above; ds may be null (no gradient on the
 // final state).  `steps` is a host array of 9 element counts: sB and sT of
-// r, k, v and w in turn, then u_sb.  The caller guarantees BH = B x H >= 1,
-// H >= 1, T >= 0 and that ck holds ceil(T / CK) states a row.  Returns
-// cudaErrorInvalidValue for a DH other than 16 or 64, else the error of the
-// shared-memory attribute or of the launch, which is asynchronous on
-// `stream`.
+// r, k, v and w in turn, then u_sb.  `vec16` says every operand row and
+// token, dy, ck and ds start on 16-byte boundaries (the caller checks).
+// The caller guarantees BH = B x H >= 1, H >= 1, T >= 0 and that ck holds
+// ceil(T / CK) states a row.  Returns cudaErrorInvalidValue for a DH other
+// than 16 or 64, else the error of the shared-memory attribute or of the
+// cluster launch (a card that cannot place the cluster refuses it), which
+// is asynchronous on `stream`.
 extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* ck,
                               const void* dy, const void* ds, void* dr,
                               void* dk, void* dv, void* dw, void* du,
-                              void* ds0, void* hist, const long long* steps,
-                              int BH, int H, int T, int DH, int bf16,
+                              void* ds0, const long long* steps, int BH,
+                              int H, int T, int DH, int bf16, int vec16,
                               void* stream) {
   BwdArgs a;
   a.rkv[0] = r;
@@ -846,7 +1417,6 @@ extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
   a.dw = static_cast<float*>(dw);
   a.du = static_cast<float*>(du);
   a.ds0 = static_cast<float*>(ds0);
-  a.hist = static_cast<float*>(hist);
   for (int x = 0; x < 4; ++x) {
     a.sB[x] = steps[2 * x];
     a.sT[x] = steps[2 * x + 1];
@@ -854,10 +1424,15 @@ extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
   a.u_sb = steps[8];
   a.H = H;
   a.T = T;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (DH) {
-    case 16: return launch_bwd<16>(a, BH, bf16 != 0, s);
-    case 64: return launch_bwd<64>(a, BH, bf16 != 0, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bwd_dispatch(&a, BH, DH, bf16, vec16,
+                      static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The backward kernel instance's geometry on this card, into out[7]: P
+// (CTAs a row), threads a CTA, dynamic shared memory bytes, CTAs an SM
+// holds, clusters the card holds at once, registers a thread and local
+// memory bytes a thread.  Returns a CUDA error code, 0 on success.
+extern "C" int rwkv6_scan_bwd_geometry(int DH, int bf16, int vec16,
+                                       int* out) {
+  return bwd_dispatch(nullptr, 1, DH, bf16, vec16, nullptr, out);
 }

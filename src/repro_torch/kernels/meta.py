@@ -4,8 +4,8 @@ A meta tensor has a shape, a dtype and no storage, so a model step run on
 meta tensors runs every op of the step and computes nothing
 (`roofline.component_costing`, `launch.dryrun`).  The kernel routers send
 meta operands here.  Each function allocates what the card path
-allocates for the call (its outputs, and a scratch buffer the call
-frees on return), returns the outputs with the card path's shapes and
+allocates for the call (its outputs, and any scratch buffer the call
+frees on return: none of today's kernels takes one), returns the outputs with the card path's shapes and
 dtypes, and reports the call, with the sizes that price it, to every
 sink `recording` has installed.  It is not a fallback: nothing is
 computed, so nothing can be computed wrongly.
@@ -70,10 +70,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    dy: torch.Tensor, ds: torch.Tensor | None,
                    with_s0: bool) -> tuple:
     """`cuda_rwkv6_scan.launch_bwd`: `(dr, dk, dv, dw, du_rows, ds0)`,
-    dr, dk, dv in r's dtype, the rest float32, and its `(B * H, CK * dh *
-    dh)` float32 scratch, freed on return."""
-    from repro_torch.kernels.rwkv6_scan import CK
-
+    dr, dk, dv in r's dtype, the rest float32 (the kernel takes no
+    scratch in device memory)."""
     B, T, H, dh = r.shape
     dev = r.device
     dy = dy.to(torch.float32).contiguous()
@@ -85,8 +83,6 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.empty(shape, dtype=torch.float32, device=dev)
     du = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
-    hist = torch.empty((B * H, CK * dh * dh), dtype=torch.float32, device=dev)
-    del hist
     _report("rwkv6_scan_bwd", BH=B * H, T=T, dh=dh, with_s0=with_s0,
             with_ds=ds is not None, x_bytes=r.element_size(),
             u_rows=u.numel() // dh)

@@ -29,7 +29,7 @@ versions here run the recurrence token by token and hold at any decay in
 The tensors' device picks the executor: on the CPU the plain version
 below, on a CUDA device the hand-written kernel (`cuda_rwkv6_scan`,
 `csrc/rwkv6_scan.cu`), on the `meta` device the card path's outputs
-(shapes and dtypes, and the backward's scratch), with the call reported
+(shapes and dtypes), with the call reported
 to the costing (`kernels.meta`); nothing falls back from one to another.
 
 Gradients.  Where autograd records (grad mode on and an operand needing

@@ -1013,14 +1013,17 @@ def _bwd_reverse(args, dy, ds, fn):
 @pytest.mark.parametrize("state", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,T,H,dh", [(2, 256, 8, 64), (3, 13, 5, 64),
-                                      (4, 33, 4, 16), (1, 1, 2, 16)])
+                                      (4, 33, 4, 16), (1, 1, 2, 16),
+                                      (1, 257, 3, 64), (1, 40, 1, 64)])
 def test_rwkv6_scan_bwd_kernel_inside_f32_envelope(cuda, B, T, H, dh, dtype,
                                                    state):
     """The backward kernel, from its forward instance's checkpoints, on
-    the model's strided views (decays down to 1e-12), with and without s0
-    and a state gradient: every gradient inside eps (dh + 2T + 4) times
-    the reverse recurrence on absolute values, plus one bf16 rounding of
-    dr, dk, dv; two launches bit-identical."""
+    the model's strided views (decays down to 1e-12; with a state, views
+    one element off 16-byte boundaries, staged element by element), with
+    and without s0 and a state gradient, at B·H = 1 and an odd H with T
+    off the chunk: every gradient inside eps (dh + 2T + 4) times the
+    reverse recurrence on absolute values, plus one bf16 rounding of dr,
+    dk, dv; two launches bit-identical."""
     rng = np.random.default_rng(B * T + dh)
     args = _model_layout(cuda, rng, B, T, H, dh, dtype, int(state))
     s0 = ds = None
@@ -1032,6 +1035,8 @@ def test_rwkv6_scan_bwd_kernel_inside_f32_envelope(cuda, B, T, H, dh, dtype,
                           .astype(np.float32)).to(cuda)
     ck = torch.empty((B, H, WKV.n_checkpoints(T), dh, dh), device=cuda)
     CW.launch(*args, s0, ckpt=ck)
+    assert CW.plan_bwd(*args, dy, ck, ds).design == (
+        "element" if state else "cp_async")
     before = CW.LAUNCHES["rwkv6_scan_bwd"]
     got = CW.launch_bwd(*args, ck, dy, ds)
     again = CW.launch_bwd(*args, ck, dy, ds)

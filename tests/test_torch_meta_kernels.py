@@ -147,6 +147,34 @@ def test_wkv_meta_gradient_matches_the_cpu_gradient(with_s0):
     assert bwd["T"] == T and bwd["BH"] == 6 and bwd["u_rows"] == 3
 
 
+@pytest.mark.parametrize("with_ds", [False, True])
+def test_wkv_meta_backward_allocates_only_its_outputs(with_ds):
+    """`meta.rwkv6_scan_bwd` allocates what `cuda_rwkv6_scan.launch_bwd`
+    does: the six gradients and the scratch `plan_bwd` names -- none, the
+    kernel keeping a chunk's recomputed states in shared memory."""
+    from repro_torch.kernels import cuda_rwkv6_scan as CW
+    from repro_torch.roofline.component_costing import CostMode
+
+    B, T, H, dh = 2, 2 * WKV.CK + 3, 3, 64
+    cpu = wkv_operands(B, T, H, dh, torch.bfloat16)[:5]
+    ck = torch.zeros((B, H, WKV.n_checkpoints(T), dh, dh))
+    dy = torch.zeros((B, T, H, dh))
+    ds = torch.zeros((B, H, dh, dh)) if with_ds else None
+    plan = CW.plan_bwd(*cpu, dy, ck, ds)
+    assert not {"hist_floats", "scratch_bytes"} & set(plan._fields)
+    m = [like(t) for t in (*cpu, ck, dy)] + [like(ds) if with_ds else None]
+    with CostMode(track_memory=True,
+                  external=[t for t in m if t is not None]) as mode:
+        out = KM.rwkv6_scan_bwd(*m, True)
+        peak, live = mode.peak, mode.live
+    grads = sum(t.numel() * t.element_size() for t in out)
+    assert peak == live == grads
+    assert [sig(t) for t in out] == [
+        ((B, T, H, dh), torch.bfloat16)] * 3 + [
+        ((B, T, H, dh), torch.float32), ((B, H, dh), torch.float32),
+        ((B, H, dh, dh), torch.float32)]
+
+
 def test_wkv_training_keeps_the_checkpoint_buffer():
     """The SAVE forward allocates `(B, H, n_checkpoints(T), dh, dh)`; the
     meta forward keeps it for the backward as the card path does."""

@@ -17,7 +17,7 @@ recurrence).  Held here:
   * the same gradients as autograd through the plain loop itself, and
     bf16 strided views, within float32 rounding;
   * refusals, and `cuda_rwkv6_scan.plan_bwd` (the backward launch's
-    layout arithmetic, pure Python).
+    layout arithmetic and cluster geometry, pure Python).
 """
 import jax
 import jax.numpy as jnp
@@ -256,15 +256,58 @@ def test_plan_bwd_reads_the_model_layout():
     p = CW.plan_bwd(r, k, v, w, torch.zeros((H, dh)))
     D3 = 3 * H * dh
     assert p.steps == (T * D3, D3) * 3 + (T * H * dh, H * dh, 0)
-    assert (p.B, p.T, p.H, p.dh, p.bf16, p.blocks) == (B, T, H, dh, True,
-                                                       B * H)
-    # BwdSmem<64>: five CK x 64 planes, CK x 8 x 64 partial sums, u, c, e
-    assert p.smem_bytes == 4 * (5 * 16 * 64 + 16 * 8 * 64 + 64 + 32)
-    assert p.hist_floats == 16 * 64 * 64
+    assert (p.B, p.T, p.H, p.dh, p.bf16, p.design) == (B, T, H, dh, True,
+                                                       "cp_async")
+    # a row is a cluster of 2 CTAs of 32 value columns, 128 threads each
+    # (a 2 x 8 tile a thread): B H P CTAs, and no scratch in device memory
+    assert (p.clusters, p.threads, p.blocks) == (2, 128, B * H * 2)
+    assert not {"hist_floats", "scratch_bytes"} & set(p._fields)
+    # BwdSmem<64, bf16>: the chunk as staged (r, k bf16 and w f32 all
+    # rows, v bf16 and dy f32 the CTA's 32 columns), its float32 planes,
+    # the states before 4 of a half's 8 tokens (the thread's 2 x 8 tile),
+    # the exchanged sums of two halves (a float4 a key row and e_t's share
+    # a token), each warp's dv, u, c, e -- two CTAs in an SM's 228 KB
+    assert p.smem_bytes == (2 * (2 * 16 * 64 + 16 * 32) + 4 * (
+        16 * 64 + 16 * 32 + 3 * 16 * 64 + 2 * 16 * 32 + 4 * 2 * 128 * 8
+        + 2 * 8 * (4 * 64 + 4) + 8 * 4 * 32 + 64 + 32)) == 81536
+    assert 2 * (p.smem_bytes + 1024) <= 228 * 1024
+    p32 = CW.plan_bwd(*(a.float() for a in (r, k, v)), w,
+                      torch.zeros((H, dh)))
+    assert p32.smem_bytes == p.smem_bytes + 2 * (2 * 16 * 64 + 16 * 32)
+    assert 2 * (p32.smem_bytes + 1024) <= 228 * 1024
     p16 = CW.plan_bwd(*(a[..., :16].contiguous() for a in (r, k, v, w)),
                       torch.zeros((B, H, 16)))
-    assert p16.steps[-1] == H * 16 and not p16.smem_bytes > 48 * 1024
-    assert p16.smem_bytes == 4 * (5 * 16 * 16 + 16 * 4 * 16 + 16 + 32)
+    assert p16.steps[-1] == H * 16
+    assert (p16.clusters, p16.threads, p16.blocks) == (1, 32, B * H)
+    assert p16.smem_bytes == (2 * (2 * 16 * 16 + 16 * 16) + 4 * (
+        16 * 16 + 16 * 16 + 3 * 16 * 16 + 2 * 16 * 16 + 4 * 2 * 32 * 4
+        + 2 * 8 * (4 * 16 + 4) + 8 * 1 * 16 + 16 + 32))
+    for q in (p, p32, p16):
+        assert q.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("offset,design", [(0, "cp_async"), (1, "element")])
+def test_plan_bwd_stages_16_bytes_only_on_aligned_operands(offset, design):
+    """16-byte staging needs every operand row and token, dy and the
+    checkpoints on 16-byte boundaries; one element off, the kernel stages
+    element by element."""
+    B, T, H, dh = 2, 19, 3, 64
+    big = torch.zeros((B, T, 3 * H * dh + offset), dtype=torch.bfloat16)
+    r, k, v = (big[..., offset + x * H * dh:offset + (x + 1) * H * dh]
+               .unflatten(-1, (H, dh)) for x in range(3))
+    w = torch.zeros((B, T, H, dh))
+    u = torch.zeros((H, dh))
+    ck = torch.zeros((B, H, WKV.n_checkpoints(T), dh, dh))
+    dy = torch.zeros((B, T, H, dh))
+    assert CW.plan_bwd(r, k, v, w, u, dy, ck).design == design
+    # dy or the checkpoints off a boundary alone
+    flat = torch.zeros(dy.numel() + 1)
+    off = flat[1:].view(dy.shape)
+    assert CW.plan_bwd(*(a.contiguous() for a in (r, k, v)), w, u, off,
+                       ck).design == "element"
+    assert CW.plan_bwd(*(a.contiguous() for a in (r, k, v)), w, u, dy,
+                       torch.zeros(ck.numel() + 1)[1:].view(ck.shape)
+                       ).design == "element"
 
 
 def test_backward_launches_are_counted_apart():
