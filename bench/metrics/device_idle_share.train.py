@@ -1,0 +1,8 @@
+"""1 minus the union of device-activity intervals over the traced
+window, in %."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
