@@ -29,7 +29,10 @@ pass writes each stack's gradient once.
 Training: `loss_fn` is the reference's objective, the mean label NLL from
 `chunked_ce_loss` (the (B, S, V) logits computed S-chunk by S-chunk) plus
 `MOE_AUX_COEF` times the MoE load-balancing loss `forward` carries; with
-`cfg.remat` each layer is recomputed in the backward pass.
+`cfg.remat` each layer is recomputed in the backward pass.  While a
+profiler records, each attention call (scores, mask, softmax, values) is
+the span `model.attention`, and the loss's forward and backward are
+`model.loss` and `model.loss.backward` (`repro_torch.trace`).
 
 Batch dict keys: tokens (B, S) int64 or int32 [+ labels (B, S), pad =
 -1, for the loss] [+ positions (B, S), or
@@ -45,6 +48,7 @@ from typing import NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import trace as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as ATT
 from repro_torch.models import moe as MOE
@@ -117,8 +121,9 @@ def _attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin, *,
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    o = ATT.blockwise_attention(q, k, v, causal=causal, window=window,
-                                block_k=cfg.attn_block_k)
+    with TR.span("model.attention"):
+        o = ATT.blockwise_attention(q, k, v, causal=causal, window=window,
+                                    block_k=cfg.attn_block_k)
     out = linear(p["wo"], o.reshape(B, S, H * dh), cfg.quant)
     return out, (k, v)
 
@@ -208,8 +213,9 @@ def _block_dec_xattn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     B, S, _ = hq.shape
     H, dh = cfg.n_heads, cfg.head_dim
     q = linear(lp["xattn"]["wq"], hq, cfg.quant).reshape(B, S, H, dh)
-    o = ATT.blockwise_attention(q, xk, xv, causal=False,
-                                block_k=cfg.attn_block_k)
+    with TR.span("model.attention"):
+        o = ATT.blockwise_attention(q, xk, xv, causal=False,
+                                    block_k=cfg.attn_block_k)
     x = x + linear(lp["xattn"]["wo"], o.reshape(B, S, H * dh), cfg.quant)
     x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
     return x, _zero(x), (kv, (xk, xv))
@@ -350,22 +356,32 @@ def chunked_ce_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
     lowers it, each chunk's logits in f32.  With `cfg.remat`, where
     autograd records, each chunk runs under `torch.utils.checkpoint`, so
     the backward pass too holds one chunk's logits at a time.  Returns
-    (sum of NLL over labels >= 0, their count), both f32 scalars."""
+    (sum of NLL over labels >= 0, their count), both f32 scalars.
+
+    While a profiler records, the forward is the span `model.loss`, and
+    a hook on `x` closes the open `model.loss.backward` (which
+    `train.loop.grads_of` begins) once x's gradient is whole: the
+    chunks' backward and their recompute lie inside it."""
     B, S, _ = x.shape
     n_chunks = max(1, min(n_chunks, S))
     while S % n_chunks:
         n_chunks -= 1
     Sc = S // n_chunks
     remat = cfg.remat and torch.is_grad_enabled()
-    nll = n_tok = _zero(x)
-    for c in range(n_chunks):
-        xc, lc = x[:, c * Sc:(c + 1) * Sc], labels[:, c * Sc:(c + 1) * Sc]
-        if remat:
-            part, cnt = torch.utils.checkpoint.checkpoint(
-                _ce_chunk, cfg, params, xc, lc, use_reentrant=False)
-        else:
-            part, cnt = _ce_chunk(cfg, params, xc, lc)
-        nll, n_tok = nll + part, n_tok + cnt
+    if TR.on() and torch.is_grad_enabled() and x.requires_grad:
+        # the loss's backward ends where the gradient of x is whole
+        x.register_hook(TR.closer("model.loss.backward"))
+    with TR.span("model.loss"):
+        nll = n_tok = _zero(x)
+        for c in range(n_chunks):
+            xc = x[:, c * Sc:(c + 1) * Sc]
+            lc = labels[:, c * Sc:(c + 1) * Sc]
+            if remat:
+                part, cnt = torch.utils.checkpoint.checkpoint(
+                    _ce_chunk, cfg, params, xc, lc, use_reentrant=False)
+            else:
+                part, cnt = _ce_chunk(cfg, params, xc, lc)
+            nll, n_tok = nll + part, n_tok + cnt
     return nll, n_tok
 
 

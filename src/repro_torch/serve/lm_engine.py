@@ -14,7 +14,10 @@ bound it.  Greedy picks
 `LMServeStats` counts prefill tokens, decode steps and their wall times
 (step times in the circuit engine's bounded ring, so a long-lived engine
 holds constant memory); each timed region ends with the step's tokens on
-the host, so it includes the card's work.
+the host, so it includes the card's work.  While a profiler records,
+each group records the spans `serve.group` (its rows, prompt length and
+request uids) and, inside it, `serve.batch`, `serve.prefill`,
+`serve.head` and `serve.to_host` (`repro_torch.trace`).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as TF
@@ -115,39 +119,47 @@ class ServingEngine:
         return requests
 
     def _run_group(self, group: list[Request], plen: int) -> None:
-        cfg, st = self.cfg, self.stats
-        toks = np.zeros((len(group), plen), np.int64)
-        for i, r in enumerate(group):
-            toks[i, : len(r.prompt)] = r.prompt
-        t0 = time.perf_counter()
-        batch = make_batch(cfg, toks, self.device)
-        hidden, cache = TF.prefill(cfg, self.params, batch, self.cache_len)
-        logits = TF.logits_from_hidden(cfg, self.params, hidden[:, -1:, :])
-        tok = torch.argmax(logits, dim=-1)                         # (B, 1)
-        toks_np = tok[:, 0].cpu().numpy()
-        st.prefill_s += time.perf_counter() - t0
-        st.prefill_tokens += toks.size
-        st.n_prefills += 1
-        max_new = max(r.max_new_tokens for r in group)
-        done = np.zeros(len(group), bool)
-        for step in range(max_new):
-            for i, r in enumerate(group):
-                if not done[i] and len(r.output) < r.max_new_tokens:
-                    t = int(toks_np[i])
-                    r.output.append(t)
-                    if r.eos_id is not None and t == r.eos_id:
+        with TR.span("serve.group", rows=len(group), prompt_len=plen,
+                     uids=[r.uid for r in group]):
+            cfg, st = self.cfg, self.stats
+            with TR.span("serve.batch"):
+                toks = np.zeros((len(group), plen), np.int64)
+                for i, r in enumerate(group):
+                    toks[i, : len(r.prompt)] = r.prompt
+                t0 = time.perf_counter()
+                batch = make_batch(cfg, toks, self.device)
+            with TR.span("serve.prefill"):
+                hidden, cache = TF.prefill(cfg, self.params, batch,
+                                           self.cache_len)
+            with TR.span("serve.head"):
+                logits = TF.logits_from_hidden(cfg, self.params,
+                                               hidden[:, -1:, :])
+                tok = torch.argmax(logits, dim=-1)                 # (B, 1)
+            with TR.span("serve.to_host"):
+                toks_np = tok[:, 0].cpu().numpy()
+            st.prefill_s += time.perf_counter() - t0
+            st.prefill_tokens += toks.size
+            st.n_prefills += 1
+            max_new = max(r.max_new_tokens for r in group)
+            done = np.zeros(len(group), bool)
+            for step in range(max_new):
+                for i, r in enumerate(group):
+                    if not done[i] and len(r.output) < r.max_new_tokens:
+                        t = int(toks_np[i])
+                        r.output.append(t)
+                        if r.eos_id is not None and t == r.eos_id:
+                            done[i] = True
+                    elif len(r.output) >= r.max_new_tokens:
                         done[i] = True
-                elif len(r.output) >= r.max_new_tokens:
-                    done[i] = True
-            if done.all() or step == max_new - 1:
-                break
-            t0 = time.perf_counter()
-            logits, cache = TF.decode_step(cfg, self.params, cache, tok,
-                                           plen + step)
-            tok = torch.argmax(logits, dim=-1)
-            toks_np = tok[:, 0].cpu().numpy()
-            dt = time.perf_counter() - t0
-            st.decode_s += dt
-            st.decode_steps += 1
-            st.decode_tokens += len(group)
-            st.decode_step_ms.push(dt * 1e3)
+                if done.all() or step == max_new - 1:
+                    break
+                t0 = time.perf_counter()
+                logits, cache = TF.decode_step(cfg, self.params, cache, tok,
+                                               plen + step)
+                tok = torch.argmax(logits, dim=-1)
+                toks_np = tok[:, 0].cpu().numpy()
+                dt = time.perf_counter() - t0
+                st.decode_s += dt
+                st.decode_steps += 1
+                st.decode_tokens += len(group)
+                st.decode_step_ms.push(dt * 1e3)

@@ -19,6 +19,12 @@ The port of `repro.train.loop`, on one device:
     accumulation and the update (`optim.grad_compress`);
   * the optimizer — AdamW, with int8 moments when `cfg.opt_8bit`.
 
+While a profiler records, a step records the spans `train.step`,
+`train.microbatch` (each `grads_of`; its index and tokens; with the
+model's `model.loss` and `model.loss.backward` inside),
+`train.accumulate` (the sum's allocation, each addition, the mean),
+`train.update` and, inside it, `train.compress` (`repro_torch.trace`).
+
 Autograd is PyTorch's (`torch.autograd.grad` of `models.transformer.
 loss_fn` with respect to every parameter leaf); there is no `jit` and no
 buffer donation.  A step waits for the device once, when the loop reads
@@ -36,6 +42,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -80,6 +87,8 @@ def grads_of(cfg: ModelConfig, params: dict, batch: dict
     paths = [path for path, _ in P.leaves(params)]
     leaves = [p.detach().requires_grad_() for _, p in P.leaves(params)]
     loss, metrics = TF.loss_fn(cfg, _unflatten(paths, leaves), batch)
+    # closed by `chunked_ce_loss`'s hook once the loss's backward is done
+    TR.begin("model.loss.backward")
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, gs)]
@@ -108,11 +117,13 @@ def update(cfg: ModelConfig, loop_cfg: TrainLoopConfig, params: dict,
            grads: dict, opt_state, err_buf=None):
     """The step after the gradients: optional compression, then one
     optimizer update.  Returns `(params, opt_state, err_buf)`."""
-    if loop_cfg.grad_compress and err_buf is not None:
-        grads, err_buf = compress_grads(grads, err_buf)
-    opt_mod = adamw8bit if cfg.opt_8bit else adamw
-    params, opt_state = opt_mod.apply_updates(params, grads, opt_state,
-                                              loop_cfg.optimizer)
+    with TR.span("train.update"):
+        if loop_cfg.grad_compress and err_buf is not None:
+            with TR.span("train.compress"):
+                grads, err_buf = compress_grads(grads, err_buf)
+        opt_mod = adamw8bit if cfg.opt_8bit else adamw
+        params, opt_state = opt_mod.apply_updates(params, grads, opt_state,
+                                                  loop_cfg.optimizer)
     return params, opt_state, err_buf
 
 
@@ -124,30 +135,40 @@ def make_train_step(cfg: ModelConfig, loop_cfg: TrainLoopConfig) -> Callable:
     acc_dt = P.DTYPES[cfg.accum_dtype]
 
     def train_step(params, opt_state, batch, err_buf=None):
-        n_mb = loop_cfg.microbatches
-        if n_mb > 1:
-            B = batch["tokens"].shape[0]
-            if B % n_mb:
-                raise ValueError(f"batch {B} does not split into {n_mb} "
-                                 "microbatches")
-            gsum = accumulator(params, acc_dt)
-            nll = ntok = None
-            for i in range(n_mb):
-                mb = {k: v.reshape(n_mb, B // n_mb, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                g, met = grads_of(cfg, params, mb)
-                accumulate_(gsum, g, acc_dt)
-                del g
-                nll = met["nll"] if nll is None else nll + met["nll"]
-                ntok = met["tokens"] if ntok is None else ntok + met["tokens"]
-            grads = averaged(gsum, n_mb, ntok)
-            metrics = {"loss": nll / torch.clamp(ntok, min=1.0), "nll": nll,
-                       "tokens": ntok, "moe_aux": torch.zeros_like(nll)}
-        else:
-            grads, metrics = grads_of(cfg, params, batch)
-        params, opt_state, err_buf = update(cfg, loop_cfg, params, grads,
-                                            opt_state, err_buf)
-        return params, opt_state, metrics, err_buf
+        with TR.span("train.step"):
+            n_mb = loop_cfg.microbatches
+            if n_mb > 1:
+                B = batch["tokens"].shape[0]
+                if B % n_mb:
+                    raise ValueError(f"batch {B} does not split into {n_mb} "
+                                     "microbatches")
+                with TR.span("train.accumulate"):
+                    gsum = accumulator(params, acc_dt)
+                nll = ntok = None
+                for i in range(n_mb):
+                    mb = {k: v.reshape(n_mb, B // n_mb, *v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    with TR.span("train.microbatch", index=i,
+                                 tokens=mb["tokens"].numel()):
+                        g, met = grads_of(cfg, params, mb)
+                    with TR.span("train.accumulate"):
+                        accumulate_(gsum, g, acc_dt)
+                    del g
+                    nll = met["nll"] if nll is None else nll + met["nll"]
+                    ntok = (met["tokens"] if ntok is None
+                            else ntok + met["tokens"])
+                with TR.span("train.accumulate"):
+                    grads = averaged(gsum, n_mb, ntok)
+                metrics = {"loss": nll / torch.clamp(ntok, min=1.0),
+                           "nll": nll, "tokens": ntok,
+                           "moe_aux": torch.zeros_like(nll)}
+            else:
+                with TR.span("train.microbatch", index=0,
+                             tokens=batch["tokens"].numel()):
+                    grads, metrics = grads_of(cfg, params, batch)
+            params, opt_state, err_buf = update(cfg, loop_cfg, params, grads,
+                                                opt_state, err_buf)
+            return params, opt_state, metrics, err_buf
 
     return train_step
 
