@@ -318,7 +318,14 @@ package) and prints one JSON object per phase:
      `torch.matmul` on weights unpacked to bf16 beforehand (`library_ms`,
      a yardstick the port never calls) at each (K, N) of the LM path and
      M in {1, 8, 256, 768}, with the variant, K splits and tile the plan
-     picks;
+     picks; `timing_attention` — the fused attention kernel at
+     qwen2.5-14b's prefill groups (`ATT_GROUPS`), routed as the model
+     calls it, beside the blockwise path (plain), one
+     `scaled_dot_product_attention` (`library_ms`, a yardstick the port
+     never calls) and the bound, with both errors against float64 (the
+     kernel's within twice the blockwise path's); `attention_served` —
+     every `model.attention` call of a served qwen2.5-14b prefill takes
+     the `fused` route;
      `timing_rwkv` and `timing_popcount` — kernel, plain version, bound,
      design and launch floor at the path's shapes (WKV: rwkv6-7b's
      captured prefill, BH 512 x T 96, and decode, T 1 from a state, in
@@ -388,6 +395,11 @@ LM_M = (1, 8, 256, 768)
 TM_CHECK_M = (1, 7, 8, 9, 16, 64, 65, 256, 768)
 TM_CHECK_KN = tuple(dict.fromkeys(LM_KN + tuple(
     (K, N) for K in (36, 2048, 8192) for N in (130, 200, 512, 8192))))
+# fused attention: qwen2.5-14b's prefill groups (rows, prompt tokens), its
+# heads (query, KV, size), and the prefill served to count the routes
+ATT_GROUPS = ((8, 2048), (4, 1024), (8, 512))
+ATT_HEADS = (40, 8, 128)
+ATT_SERVED = (8, 512)
 PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # Card (kernel) against CPU (plain versions) in float32 at full width:
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
@@ -1055,6 +1067,7 @@ def serve_family(dev, fam) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_attention as CA
     from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.models import params as P
     from repro_torch.serve.lm_engine import LMServeStats, Request, \
@@ -1081,9 +1094,11 @@ def serve_family(dev, fam) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CT.reset_launches()
+    CA.reset_launches()
     engine.run(reqs)
     launches = CT.LAUNCHES["ternary_matmul"]
     by_variant = dict(CT.VARIANT_LAUNCHES)
+    attention_routes = dict(CA.VARIANT_LAUNCHES)
     shapes.update(CT.SHAPE_LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     lm = engine.stats.summary()
@@ -1113,6 +1128,7 @@ def serve_family(dev, fam) -> dict:
            "stats": lm, "ternary_matmul_launches": launches,
            "expected": sum(want.values()), "launches_by_variant": by_variant,
            "expected_by_variant": want,
+           "attention_by_route": attention_routes,
            "shapes_with_warm_up": sorted([M, K, N, str(dt)[6:], n] for
                                          (M, K, N, dt), n in shapes.items()),
            "lin_kn": sorted(want_kn), "logits_finite": finite,
@@ -3324,6 +3340,110 @@ def ternary_timing(dev) -> list[dict]:
     return rows
 
 
+def attention_timing(dev) -> list[dict]:
+    """`timing_attention`: the fused attention kernel at qwen2.5-14b's
+    prefill groups (`ATT_GROUPS`, causal, random bf16 q, k, v), routed as
+    the model calls it: kernel ms, the blockwise path as plain, one
+    `scaled_dot_product_attention` on K and V repeated to H heads
+    beforehand (`library_ms`, a yardstick the port never calls), the
+    bound, the key tiles computed against the square's, and the largest
+    error of kernel and blockwise path against float64 attention of the
+    same inputs; fails unless the kernel's is within twice the blockwise
+    path's.  Then `attention_served`: qwen2.5-14b (the `lm_families` row,
+    published width) serves one group of `ATT_SERVED` prompts, 1 new token
+    each, through `ServingEngine`, and every `model.attention` call must
+    take the `fused` route (`VARIANT_LAUNCHES`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cuda_attention as CA
+    from repro_torch.launch.families import FAMILIES
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import params as P
+    from repro_torch.roofline.kernel_model import attention_bound_ms
+    from repro_torch.serve.lm_engine import Request, ServingEngine
+
+    H, K, dh = ATT_HEADS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for B, S in ATT_GROUPS:
+        q = torch.randn(B, S, H, dh, device=dev, generator=gen).bfloat16()
+        k = torch.randn(B, S, K, dh, device=dev, generator=gen).bfloat16()
+        v = torch.randn(B, S, K, dh, device=dev, generator=gen).bfloat16()
+        with torch.inference_mode():
+            p = CA.route(q, k, v, causal=True, window=None, q_offset=0)
+            got = ATT.blockwise_attention(q, k, v)
+            plain = ATT.blockwise_attention_plain(q, k, v)
+            err = plain_err = 0.0
+            for i in range(B):
+                qd = q[i].double().transpose(0, 1)
+                kd = k[i].double().repeat_interleave(H // K, 1).transpose(0, 1)
+                vd = v[i].double().repeat_interleave(H // K, 1).transpose(0, 1)
+                s = (qd @ kd.transpose(1, 2)) / dh ** 0.5
+                s.masked_fill_(torch.ones(S, S, dtype=torch.bool,
+                                          device=dev).triu(1), -float("inf"))
+                want = (torch.softmax(s, -1) @ vd).transpose(0, 1)
+                err = max(err, float((got[i].double() - want).abs().max()))
+                plain_err = max(plain_err, float(
+                    (plain[i].double() - want).abs().max()))
+                del qd, kd, vd, s, want
+            del got, plain
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (t.repeat_interleave(H // K, 2).transpose(1, 2)
+                      .contiguous() for t in (k, v))
+            tiles = CA.tiles_computed(S, S, causal=True, window=None,
+                                      q_offset=0, g=H // K)
+            square = CA.tiles_computed(S, S, causal=False, window=None,
+                                       q_offset=0, g=H // K)
+            row = {"B": B, "S": S, "H": H, "K": K, "dh": dh,
+                   "route": p.route, "positions": p.positions,
+                   "grid": list(p.grid), "tiles": B * K * tiles,
+                   "tiles_of_square": B * K * square,
+                   "max_abs_err": err, "plain_max_abs_err": plain_err}
+            row["ms"] = gpu_ms(lambda: ATT.blockwise_attention(q, k, v),
+                               TIMED_REPS, True)
+            row["plain_ms"] = gpu_ms(
+                lambda: ATT.blockwise_attention_plain(q, k, v), PLAIN_REPS,
+                True)
+            row["library_ms"] = gpu_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                TIMED_REPS, True)
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            B, S, S, H, K, dh, True)
+        rows.append(row)
+        say("timing_attention", **row)
+        if p.route != "fused" or err > 2 * plain_err:
+            fail(f"timing_attention: ({B}, {S}): route {p.route} "
+                 f"({p.why}), error {err} against the blockwise path's "
+                 f"{plain_err}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    fam = next(f for f in FAMILIES if f.arch == "qwen2.5-14b")
+    cfg = fam.config()
+    rows_served, plen = ATT_SERVED
+    engine = ServingEngine(cfg, P.serving_params(cfg, SEED, dev),
+                           max_batch=rows_served, cache_len=plen + 1,
+                           device=dev)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                    max_new_tokens=1) for i in range(rows_served)]
+    CA.reset_launches()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    routes = dict(CA.VARIANT_LAUNCHES)
+    say("attention_served", arch=cfg.name, n_layers=cfg.n_layers,
+        rows=rows_served, prompt_tokens=plen, launches_by_route=routes,
+        expected={"fused": cfg.n_layers, "blockwise": 0})
+    if routes != {"fused": cfg.n_layers, "blockwise": 0}:
+        fail(f"attention_served: routes {routes}, expected every one of "
+             f"{cfg.n_layers} fused")
+    del engine
+    torch.cuda.empty_cache()
+    return rows
+
+
 def wkv_bwd_check(args: tuple, dy, ds, stats: dict) -> None:
     """The WKV-6 backward kernel on `(B, T, H, dh)` operands (r, k, v, w,
     u, s0; s0 and the final state's gradient `ds` may be None), from the
@@ -4130,6 +4250,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import circuit_sim as CS
+    from repro_torch.kernels import cuda_attention as CA
     from repro_torch.kernels import cuda_circuit_sim as CK
     from repro_torch.kernels import cuda_packed_popcount as CP
     from repro_torch.kernels import cuda_rwkv6_scan as CW
@@ -4152,7 +4273,7 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    wrappers = (CK, CT, CP, CW)
+    wrappers = (CK, CT, CP, CW, CA)
     libs = _build.build([m.SOURCE for m in wrappers])  # one nvcc each, together
     for m in wrappers:
         m._lib()
@@ -4605,6 +4726,7 @@ def main() -> int:
         say("timing_fleet", **row)
 
     tm_rows = ternary_timing(dev)
+    attention_timing(dev)
     wkv_rows, pop_rows = rwkv_popcount_timing(rwkv, {
         "arrhythmia readings": reading_words,
         "random": torch.randint(-2 ** 31, 2 ** 31 - 1, (65536, 32),

@@ -2,13 +2,19 @@
 
 The port of `repro.models.attention`, in the reference's arithmetic (f32
 scores, `NEG_INF` masking, running max and sum over `block_k` KV blocks) so
-that the tests compare like with like; no fused attention operator is
+that the tests compare like with like; no library attention operator is
 used.  GQA is native: queries are grouped per KV head and K/V are never
-repeated to H heads.
+repeated to H heads.  `blockwise_attention` sends bf16 calls on the card
+that autograd does not record to the hand-written fused kernel
+(`kernels/cuda_attention.py`, routed by its `plan`: the same function at
+f32 precision, only the visible key tiles, scores kept on chip); every
+other call runs the blockwise code below.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import cuda_attention as CA
 
 NEG_INF = -1e30
 
@@ -21,7 +27,25 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Sq, H, h); k, v: (B, Sk, K, h) with H % K == 0.  q_offset is the
     absolute position of q[0] relative to k[0].  Returns (B, Sq, H, h).
+    Calls `cuda_attention.plan` routes to `fused` run the kernel, whose
+    result does not depend on `block_k`; the rest run
+    `blockwise_attention_plain`.
     """
+    p = CA.route(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if p.route == "fused":
+        return CA.launch(q, k, v, p, causal=causal, window=window,
+                         q_offset=q_offset)
+    CA.count("blockwise")
+    return blockwise_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, block_k=block_k)
+
+
+def blockwise_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int | None = None, q_offset: int = 0,
+                              block_k: int = 1024) -> torch.Tensor:
+    """The blockwise path of `blockwise_attention`, on any device: f32
+    scores over `block_k` key blocks, the last one zero-padded."""
     b, sq, hh, dh = q.shape
     sk, kk = k.shape[1], k.shape[2]
     g = hh // kk

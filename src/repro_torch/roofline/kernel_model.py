@@ -14,7 +14,7 @@ Peaks (NVIDIA H100 SXM data sheet):
   * `INT32_OPS_PER_S`   67e12 32-bit integer ops/s on the CUDA cores (the
     gate walk's word logic, the popcount);
   * `BF16_FLOP_PER_S`   989e12 dense bf16 tensor-core FLOP/s (the ternary
-    matmul);
+    matmul, the fused prefill attention);
   * `F32_FLOP_PER_S`    67e12 f32 FLOP/s on the CUDA cores (the WKV-6
     scan and its backward, `wkv_bound_ms` and `wkv_bwd_bound_ms`, and
     every float32 product of the port, which runs with TF32 off);
@@ -266,6 +266,42 @@ def ternary_bound_ms(M: int, K: int, N: int, x_bytes: int
                      ) -> tuple[float, str]:
     """Least time for `(x @ unpack(w2)) * scale` (`ternary_roofline`)."""
     rl = ternary_roofline(M, K, N, x_bytes)
+    return rl.bound_ms, rl.dominant
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int | None = None,
+                    q_offset: int = 0) -> int:
+    """Visible (query row, key) pairs of one head: row i (absolute position
+    q_offset + i) sees keys j < Sk with j <= q_offset + i if causal and
+    q_offset + i - j < window if a window is given."""
+    total = 0
+    for i in range(q_offset, q_offset + Sq):
+        hi = min(Sk - 1, i) if causal else Sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_roofline(B: int, Sq: int, Sk: int, H: int, K: int, dh: int,
+                       causal: bool, window: int | None = None,
+                       q_offset: int = 0, x_bytes: int = 2) -> Roofline:
+    """Prefill attention (`csrc/attention.cu`): q and the output (B, Sq, H,
+    dh), k and v (B, Sk, K, dh) each moved once (`x_bytes` an element),
+    against 4 dh flops per visible (row, key) pair a head (Q K^T and P V,
+    2 dh each) at the bf16 tensor-core rate."""
+    pairs = attention_pairs(Sq, Sk, causal, window, q_offset)
+    n_bytes = x_bytes * B * dh * (2 * Sq * H + 2 * Sk * K)
+    return Roofline(float(n_bytes), 4.0 * B * H * dh * pairs,
+                    BF16_FLOP_PER_S)
+
+
+def attention_bound_ms(B: int, Sq: int, Sk: int, H: int, K: int, dh: int,
+                       causal: bool, window: int | None = None,
+                       q_offset: int = 0, x_bytes: int = 2
+                       ) -> tuple[float, str]:
+    """Least time for prefill attention (`attention_roofline`)."""
+    rl = attention_roofline(B, Sq, Sk, H, K, dh, causal, window, q_offset,
+                            x_bytes)
     return rl.bound_ms, rl.dominant
 
 
