@@ -7,19 +7,37 @@ plain reference (`bench.reference`).  The helpers here are shared.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
+import typing
 
 import torch
 
 
 def model_config(model: dict, n_layers: int):
-    """The program's `ModelConfig` of a configuration file's `model`."""
-    from repro_torch.configs.base import ModelConfig, SSMSpec
+    """The program's `ModelConfig` of a configuration file's `model`: each
+    nested object whose field is declared as a spec class of
+    `repro_torch.configs.base` (`ssm`, `moe`, ...) built as that class,
+    every JSON array a tuple."""
+    from repro_torch.configs import base
 
-    kw = dict(model, n_layers=n_layers)
-    if kw.get("ssm"):
-        kw["ssm"] = SSMSpec(**kw["ssm"])
-    return ModelConfig(**kw)
+    def spec(hint):
+        return next((t for t in (hint, *typing.get_args(hint))
+                     if dataclasses.is_dataclass(t)
+                     and t.__module__ == base.__name__), None)
+
+    def value(v, hint):
+        cls = spec(hint) if isinstance(v, dict) else None
+        if cls is not None:
+            hints = typing.get_type_hints(cls)
+            return cls(**{k: value(x, hints.get(k)) for k, x in v.items()})
+        if isinstance(v, list):
+            return tuple(value(x, None) for x in v)
+        return v
+
+    hints = typing.get_type_hints(base.ModelConfig)
+    return base.ModelConfig(**{k: value(v, hints.get(k)) for k, v in
+                               dict(model, n_layers=n_layers).items()})
 
 
 def sync(dev) -> None:

@@ -24,12 +24,11 @@ import time
 import numpy as np
 import torch
 
-from bench import gen, weights
+from bench import gen, reference, weights
 from bench.devtrace import WINDOW, Tracer, wrapped
 from bench.drivers import model_config, peak_bytes, release, reset_peak, sync
 from bench.harness import Ctx, Run, say
 from bench.reference import prec as PREC
-from bench.reference import qwen2, rwkv6
 
 SLOT = 1_000_000          # uid = cycle * SLOT + slot in the cycle's layout
 
@@ -71,7 +70,7 @@ class Serving:
         model, mix = ctx.config["model"], ctx.mix
         self.cfg = model_config(model, model["n_layers"])
         params = quantize_params(self.cfg, weights.draw(
-            model, ctx.seed, ctx.device, model["n_layers"]))
+            ctx.config, ctx.seed, ctx.device, model["n_layers"]))
         self.engine = ServingEngine(self.cfg, params, mix["max_batch"],
                                     mix["cache_len"], ctx.device)
         del params
@@ -150,11 +149,12 @@ def serve_window(ctx: Ctx, prog: Serving, tracer: Tracer,
 
 def reference_hidden(ctx: Ctx, seqs: list[list[int]], precs,
                      block_tokens: int = 8192) -> dict:
-    """Every layer of the reference over each sequence, in each
-    precision: `{prec.name: [hidden (S, D) f32]}`, before the final
-    norm.  Sequences of one length go through together, in blocks of at
-    most `block_tokens` tokens."""
-    model, dev, seed = ctx.config["model"], ctx.device, ctx.seed
+    """Every layer of the reference (the configuration's module) over
+    each sequence, in each precision: `{prec.name: [hidden (S, D) f32]}`,
+    before the final norm.  Sequences of one length go through together,
+    in blocks of at most `block_tokens` tokens."""
+    config, dev, seed = ctx.config, ctx.device, ctx.seed
+    model, arch = config["model"], reference.module(config)
     PREC.no_tf32()
     blocks: list = []
     by_len: dict = {}
@@ -164,23 +164,18 @@ def reference_hidden(ctx: Ctx, seqs: list[list[int]], precs,
         n = max(1, block_tokens // S)
         blocks += [idx[j:j + n] for j in range(0, len(idx), n)]
     with torch.no_grad():
-        table = weights.draw_top(model, seed, dev, "embed.tokens")
+        table = weights.draw_top(config, seed, dev, "embed.tokens")
         xs = {p.name: [table[torch.tensor([seqs[i] for i in idx],
                                           device=dev)].float()
                        for idx in blocks] for p in precs}
         del table
-        tables = {S: qwen2.rope_tables(S, model["d_head"],
-                                       model["rope_theta"], dev)
-                  for S in by_len} if not weights.is_rwkv(model) else {}
+        consts = {S: arch.consts(model, S, dev) for S in by_len}
         for layer in range(model["n_layers"]):
-            lp = weights.draw_layer(model, seed, dev, layer)
+            lp = weights.draw_layer(config, seed, dev, layer)
             for p in precs:
                 for b, x in enumerate(xs[p.name]):
-                    if weights.is_rwkv(model):
-                        xs[p.name][b] = rwkv6.layer(model, lp, x, p)
-                    else:
-                        xs[p.name][b] = qwen2.layer(
-                            model, lp, x, tables[x.shape[1]], p)
+                    xs[p.name][b] = arch.layer(model, lp, x,
+                                               consts[x.shape[1]], p, layer)
             del lp
     out = {}
     for p in precs:
@@ -203,7 +198,8 @@ def judge(ctx: Ctx, kept: dict, precs=(PREC.F32,)) -> dict:
     other precision they are the control's, the reference computed in
     that precision in the program's place: the gap of the token it puts
     first, and its logits' difference at the prefill position."""
-    model, dev, seed = ctx.config["model"], ctx.device, ctx.seed
+    config, dev, seed = ctx.config, ctx.device, ctx.seed
+    model, arch = config["model"], reference.module(config)
     want = len(sample_slots(ctx))
     if len(kept) < want:
         nan = {"logit_gap": float("inf"), "logit_err": float("inf"),
@@ -213,8 +209,8 @@ def judge(ctx: Ctx, kept: dict, precs=(PREC.F32,)) -> dict:
     reqs = [kept[s][0] for s in slots]
     seqs = [list(r.prompt) + list(r.output[:-1]) for r in reqs]
     hid = reference_hidden(ctx, seqs, (PREC.F32, *precs[1:]))
-    scale = weights.draw_top(model, seed, dev, "final_norm.scale")
-    head = weights.draw_top(model, seed, dev, "lm_head.w")
+    scale = weights.draw_top(config, seed, dev, "final_norm.scale")
+    head = weights.draw_top(config, seed, dev, "lm_head.w")
     out = {}
     with torch.no_grad():
         for p in precs:
@@ -222,13 +218,13 @@ def judge(ctx: Ctx, kept: dict, precs=(PREC.F32,)) -> dict:
             served = 0
             for i, r in enumerate(reqs):
                 at = slice(len(r.prompt) - 1, len(seqs[i]))
-                lr = rwkv6.logits(model, scale, head, hid["f32"][i][at])
+                lr = arch.logits(model, scale, head, hid["f32"][i][at])
                 if p is PREC.F32:
                     toks = torch.tensor(r.output, device=dev)[:len(lr)]
                     first = kept[slots[i]][1].float()
                 else:
-                    lc = rwkv6.logits(model, scale, head,
-                                      hid[p.name][i][at], p)
+                    lc = arch.logits(model, scale, head,
+                                     hid[p.name][i][at], p)
                     toks, first = lc.argmax(-1), lc[0]
                 got = lr[:len(toks)].gather(-1, toks[:, None])[:, 0]
                 best = lr.max(-1).values[:len(toks)]

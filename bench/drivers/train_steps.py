@@ -30,12 +30,12 @@ import time
 
 import torch
 
-from bench import gen, weights
+from bench import gen, reference, weights
 from bench.devtrace import WINDOW, Tracer, wrapped
 from bench.drivers import (flat, model_config, nest, peak_bytes, release,
                            reset_peak, sync)
 from bench.harness import Ctx, Run, say
-from bench.reference import optim8, rwkv6
+from bench.reference import optim8
 from bench.reference import prec as PREC
 
 SMALL_GRAD = 1e-3
@@ -46,18 +46,32 @@ def stage_layers(ctx: Ctx) -> int:
     return model["n_layers"] // ctx.mix.get("pipeline_stages", 1)
 
 
+def trainable(ctx: Ctx):
+    """The configuration's reference module, which has to give `loss`
+    for a training cell to be checked."""
+    arch = reference.module(ctx.config)
+    if not hasattr(arch, "loss"):
+        raise SystemExit(f"{ctx.cell}: the reference module {arch.__name__} "
+                         f"has no loss, so a training cell of "
+                         f"{ctx.config['name']} cannot be checked")
+    return arch
+
+
 def change_norms(ctx: Ctx, params: dict, L: int) -> dict:
     """Each leaf's norm of (now - as drawn), the drawn values made again
     leaf by leaf."""
-    model, dev, seed = ctx.config["model"], ctx.device, ctx.seed
+    dev, seed = ctx.device, ctx.seed
     now = flat(params)
     out = {}
-    for leaf in weights.leaves(model):
+    for leaf in weights.leaves(ctx.config):
+        if leaf.stacked and not weights.present(leaf, L):
+            continue              # in none of the stage's layers
         key = ".".join(leaf.path)
         p = now[key]
         if leaf.stacked:
-            sq = sum(float(torch.sum((p[i].float() - weights.draw_leaf(
-                leaf, seed, dev, i).float()).square())) for i in range(L))
+            sq = sum(float(torch.sum((p[j].float() - weights.draw_leaf(
+                leaf, seed, dev, i).float()).square()))
+                for j, i in enumerate(weights.present(leaf, L)))
         else:
             sq = float(torch.sum((p.float() - weights.draw_leaf(
                 leaf, seed, dev).float()).square()))
@@ -69,6 +83,7 @@ class Training:
     """The program's side: one state and one `train_step`."""
 
     def __init__(self, ctx: Ctx):
+        trainable(ctx)
         from repro_torch.optim import adamw, adamw8bit
         from repro_torch.optim.adamw import AdamWConfig
         from repro_torch.optim.grad_compress import init_error_buffer
@@ -81,7 +96,7 @@ class Training:
             microbatches=mix["microbatches"],
             grad_compress=mix["grad_compress"],
             optimizer=AdamWConfig(lr=mix["lr"], grad_clip=mix["grad_clip"]))
-        self.params = weights.draw(model, ctx.seed, ctx.device, self.L)
+        self.params = weights.draw(ctx.config, ctx.seed, ctx.device, self.L)
         self.opt = (adamw8bit if self.cfg.opt_8bit else adamw).init(
             self.params)
         self.err = (init_error_buffer(self.params) if mix["grad_compress"]
@@ -127,9 +142,10 @@ def reference_steps(ctx: Ctx, batches: list, prec=PREC.F32,
     gradient and change norms per leaf.  `half_batch` plants a fault:
     each microbatch's loss over the first half of its rows only."""
     model, mix, dev = ctx.config["model"], ctx.mix, ctx.device
+    arch = trainable(ctx)
     L = stage_layers(ctx)
     PREC.no_tf32()
-    P = flat(weights.draw(model, ctx.seed, dev, L))
+    P = flat(weights.draw(ctx.config, ctx.seed, dev, L))
     mu = {k: optim8.zeros_like_moment(p) for k, p in P.items()}
     nu = {k: optim8.zeros_like_moment(p) for k, p in P.items()}
     err = {k: torch.zeros(p.shape, device=dev) for k, p in P.items()}
@@ -149,8 +165,8 @@ def reference_steps(ctx: Ctx, batches: list, prec=PREC.F32,
             for j in range(len(tok)):
                 leaves = {k: p.detach().float().requires_grad_()
                           for k, p in P.items()}
-                nll, _ = rwkv6.loss(model, nest(leaves), tok[j:j + 1],
-                                    lab[j:j + 1], prec)
+                nll, _ = arch.loss(model, nest(leaves), tok[j:j + 1],
+                                   lab[j:j + 1], prec)
                 gs = torch.autograd.grad(nll / n_rows,
                                          list(leaves.values()))
                 for k, g in zip(leaves, gs):
@@ -170,7 +186,7 @@ def reference_steps(ctx: Ctx, batches: list, prec=PREC.F32,
         P, mu, nu = optim8.adamw_step(P, g, mu, nu, step + 1, mix["lr"],
                                       mix["grad_clip"])
         del g
-    P0 = flat(weights.draw(model, ctx.seed, dev, L))
+    P0 = flat(weights.draw(ctx.config, ctx.seed, dev, L))
     updates = {k: float(torch.linalg.vector_norm(P[k].float() - P0[k].float()))
                for k in P}
     return {"losses": losses, "grads": grads, "updates": updates}

@@ -20,21 +20,59 @@ place of the per-head group norm.
 inside a chunk every decay product exp(sum of log w) is formed from
 cumulative sums that start at the chunk, so nothing is divided by a
 decay; `wkv_steps` is the token-by-token definition it is held to.
+
+The module gives the interface `bench/reference/__init__.py` sets out:
+the layout, the layer, logits, the loss and the model FLOPs.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from bench import roofline, weights
+from bench.reference.common import layer_params, logits, rms_norm
 from bench.reference.prec import F32
 
 CHUNK = 32
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    x = x.float()
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
-        * scale.float()
+def leaves(model: dict) -> list:
+    """The layout: `weights.base_leaves`, then the time mix's and the
+    channel mix's leaves."""
+    D, F = model["d_model"], model["d_ff"]
+    depth, r = model["n_layers"], model["ssm"]["lora_rank"]
+    dt = weights.DTYPES[model["param_dtype"]]
+    Leaf, proj = weights.Leaf, weights.proj
+    tm, cm = ("layers", "tm"), ("layers", "cm")
+    down, up = ("normal", 1 / math.sqrt(D)), ("uniform", -0.01, 0.01)
+    out = weights.base_leaves(model)
+    out += [Leaf(tm + ("lora_A",), (D, r), dt, down, True),
+            Leaf(tm + ("w0",), (D,), torch.float32, ("uniform", -6.0, -1.0),
+                 True),
+            Leaf(tm + ("wA",), (D, r), dt, down, True),
+            Leaf(tm + ("wB",), (r, D), dt, up, True),
+            Leaf(tm + ("u",), (D,), torch.float32, ("uniform", -0.5, 0.5),
+                 True),
+            Leaf(tm + ("gn_scale",), (D,), dt, ("one_plus", 0.1), True)]
+    for n in ("w_r", "w_k", "w_v", "w_g"):
+        out += proj(tm + (n,), D, D, dt)
+    out += proj(tm + ("w_o",), D, D, dt, residual_depth=depth)
+    for n in ("r", "k", "v", "w", "g"):
+        out += [Leaf(tm + (f"mu_{n}",), (D,), dt, ("uniform", 0.0, 1.0), True),
+                Leaf(tm + (f"lora_B_{n}",), (r, D), dt, up, True)]
+    out += [Leaf(cm + ("mu_k",), (D,), dt, ("uniform", 0.0, 1.0), True),
+            Leaf(cm + ("mu_r",), (D,), dt, ("uniform", 0.0, 1.0), True)]
+    out += proj(cm + ("w_in",), D, F, dt)
+    out += proj(cm + ("w_recv",), D, D, dt)
+    out += proj(cm + ("w_out",), F, D, dt, residual_depth=depth)
+    return out
+
+
+def consts(model: dict, S: int, device) -> None:
+    """RWKV-6 needs no per-length constants."""
+    return None
 
 
 def wkv_steps(r, k, v, logw, u, s0=None):
@@ -121,11 +159,12 @@ def channel_mix(p: dict, x: torch.Tensor, prec=F32):
         * prec.q(prec.mm(k, p["w_out"]["w"]))
 
 
-def layer(model: dict, lp: dict, x: torch.Tensor, prec=F32) -> torch.Tensor:
-    """One layer on the stream x (B, S, D); `lp` the layer's leaves.  The
-    stream, the normed inputs and the mixers' outputs are held in `prec`
-    (exactly, in float32) where the program holds them in its compute
-    dtype."""
+def layer(model: dict, lp: dict, x: torch.Tensor, consts=None, prec=F32,
+          index: int = 0) -> torch.Tensor:
+    """One layer on the stream x (B, S, D); `lp` the layer's leaves (every
+    layer alike: `consts` and `index` are not read).  The stream, the
+    normed inputs and the mixers' outputs are held in `prec` (exactly, in
+    float32) where the program holds them in its compute dtype."""
     eps = model["norm_eps"]
     x = prec.q(x)
     x = prec.q(x + prec.q(time_mix(
@@ -135,17 +174,6 @@ def layer(model: dict, lp: dict, x: torch.Tensor, prec=F32) -> torch.Tensor:
         lp["cm"], prec.q(rms_norm(x, lp["ln2"]["scale"], eps)), prec))
 
 
-def logits(model: dict, final_scale, head_w, x: torch.Tensor,
-           prec=F32) -> torch.Tensor:
-    return prec.mm(rms_norm(x, final_scale, model["norm_eps"]), head_w)
-
-
-def layer_params(tree: dict, i: int) -> dict:
-    """Layer i of a layer-stacked tree."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def loss(model: dict, params: dict, tokens: torch.Tensor,
          labels: torch.Tensor, prec=F32) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of label NLL, label count) of a batch through every layer of
@@ -153,9 +181,23 @@ def loss(model: dict, params: dict, tokens: torch.Tensor,
     x = params["embed"]["tokens"][tokens.long()].float()
     L = params["layers"]["ln1"]["scale"].shape[0]
     for i in range(L):
-        x = layer(model, layer_params(params["layers"], i), x, prec)
+        x = layer(model, layer_params(params["layers"], i), x, None, prec, i)
     lg = logits(model, params["final_norm"]["scale"], params["lm_head"]["w"],
                 x, prec)
     nll = torch.logsumexp(lg, -1) - torch.gather(
         lg, -1, labels.long()[..., None])[..., 0]
     return nll.sum(), torch.tensor(float(nll.numel()), device=x.device)
+
+
+def seq_flops(model: dict, S: int, n_layers: int) -> float:
+    """2 a parameter a token, and each layer's time-mixing state products
+    (`roofline.wkv_mix_flops`)."""
+    n = weights.counts(leaves(model), n_layers)["layers"]
+    return roofline.model_flops(n, S, "serve") \
+        + n_layers * roofline.wkv_mix_flops(S, model["n_heads"],
+                                             model["d_head"])
+
+
+def ternary_shapes(model: dict, index: int) -> list:
+    """No projection: the program serves the RWKV-6 block dense only."""
+    return []

@@ -81,11 +81,24 @@ def model_flops(params: int, tokens: int, kind: str) -> float:
     return float((6 if kind == "train" else 2) * params * tokens)
 
 
-def attention_flops(S: int, n_heads: int, d_head: int) -> float:
+def attention_pairs(S: int, window: int | None = None) -> int:
+    """The (query, key) pairs causal attention over S tokens sees: each
+    query the keys at or before it, with a window the `window` latest of
+    them (key k seen by query q where q - window < k <= q)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_flops(S: int, n_heads: int, d_head: int,
+                    window: int | None = None) -> float:
     """The causal score and value products of one attention layer over
     an S-token sequence, forward: 2 * 2 * H * dh flops for each of the
-    S (S + 1) / 2 (query, key) pairs."""
-    return 2.0 * n_heads * d_head * S * (S + 1)
+    S (S + 1) / 2 (query, key) pairs, or each of `attention_pairs`'
+    under a window."""
+    if window is None:
+        return 2.0 * n_heads * d_head * S * (S + 1)
+    return 4.0 * n_heads * d_head * attention_pairs(S, window)
 
 
 def wkv_mix_flops(S: int, n_heads: int, d_head: int) -> float:

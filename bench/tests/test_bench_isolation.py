@@ -26,10 +26,11 @@ print(json.dumps(sorted({n.split(".", 1)[0] for n in sys.modules})))
 """
 
 REFERENCE = r"""
-import json, sys
+import importlib, json, pkgutil, sys
 sys.path[:0] = [sys.argv[1]]
-import bench.reference.prec, bench.reference.quant, bench.reference.rwkv6
-import bench.reference.qwen2, bench.reference.optim8
+import bench.reference
+for m in pkgutil.iter_modules(bench.reference.__path__):
+    importlib.import_module("bench.reference." + m.name)
 print(json.dumps(sorted({n.split(".", 1)[0] for n in sys.modules})))
 """
 

@@ -5,9 +5,11 @@ equals the program's one step, and its ternary codes the program's."""
 import pytest
 import torch
 
-from bench import weights
+from bench import reference, weights
 from bench.drivers import flat, model_config, nest
-from bench.reference import optim8, qwen2, rwkv6
+from bench.reference import optim8, rwkv6
+from bench.reference.common import layer_params
+from bench.reference.prec import F32
 from bench.reference.quant import ternary
 from bench.tests import tiny
 
@@ -31,9 +33,10 @@ def test_reference_logits_equal_the_programs(name):
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import quantize_params
 
-    model = tiny.config(name, "float32")["model"]
+    config = tiny.config(name, "float32")
+    model, arch = config["model"], reference.module(config)
     cfg = model_config(model, model["n_layers"])
-    dense = weights.draw(model, 3, "cpu", model["n_layers"])
+    dense = weights.draw(config, 3, "cpu", model["n_layers"])
     params = quantize_params(cfg, dense)
     tokens = torch.randint(0, model["vocab"], (2, 12),
                            generator=torch.Generator().manual_seed(1))
@@ -41,14 +44,12 @@ def test_reference_logits_equal_the_programs(name):
         h, _, _ = TF.forward(cfg, params, {"tokens": tokens})
         want = TF.logits_from_hidden(cfg, params, h)
         x = dense["embed"]["tokens"][tokens].float()
-        tables = qwen2.rope_tables(12, model["d_head"],
-                                   model.get("rope_theta", 1.0), "cpu")
+        consts = arch.consts(model, 12, "cpu")
         for i in range(model["n_layers"]):
-            lp = rwkv6.layer_params(dense["layers"], i)
-            x = (rwkv6.layer(model, lp, x) if weights.is_rwkv(model)
-                 else qwen2.layer(model, lp, x, tables))
-        got = rwkv6.logits(model, dense["final_norm"]["scale"],
-                           dense["lm_head"]["w"], x)
+            lp = layer_params(dense["layers"], i)
+            x = arch.layer(model, lp, x, consts, F32, i)
+        got = arch.logits(model, dense["final_norm"]["scale"],
+                          dense["lm_head"]["w"], x)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 

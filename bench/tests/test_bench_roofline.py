@@ -61,3 +61,10 @@ def test_model_flops_and_attention_term():
     # S = 2: three (query, key) pairs, 4 H dh flops each
     assert R.attention_flops(2, 40, 128) == 3 * 4 * 40 * 128
     assert R.wkv_mix_flops(10, 64, 64) == 10 * 4 * 64 * 64 * 64
+
+
+@pytest.mark.parametrize("S,window", [(1, None), (300, None), (300, 64),
+                                      (64, 64), (2048, 1024), (5, 1)])
+def test_attention_pairs_equal_kernel_model(S, window):
+    assert R.attention_pairs(S, window) == \
+        KM.attention_pairs(S, S, True, window)

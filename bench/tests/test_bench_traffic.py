@@ -77,11 +77,11 @@ def test_token_copy_equals_the_ports_stream():
 def test_weights_repeat_and_each_layer_draws_alone(name):
     from bench import weights
     from bench.tests import tiny
-    model = tiny.config(name)["model"]
-    a = weights.draw(model, 5, "cpu", 3)
-    b = weights.draw(model, 5, "cpu", 3)
-    c = weights.draw(model, 6, "cpu", 3)
-    lp = weights.draw_layer(model, 5, "cpu", 2)
+    config = tiny.config(name)
+    a = weights.draw(config, 5, "cpu", 3)
+    b = weights.draw(config, 5, "cpu", 3)
+    c = weights.draw(config, 6, "cpu", 3)
+    lp = weights.draw_layer(config, 5, "cpu", 2)
     from bench.drivers import flat
     fa, fb, fc, fl = flat(a), flat(b), flat(c), flat(lp)
     for k, v in fa.items():

@@ -3,10 +3,13 @@
 Both sides get the same values: the program as its parameter tree (the
 port's layout: layer-stacked leaves with a leading L axis, projections as
 `{"w": (K, N)}`), the reference a layer at a time, drawn again.  Each
-(leaf, layer) has a generator of its own, seeded from (run seed, leaf
-path, layer), so any layer is drawn alone without the others; the draws
-run on the device in one call per (leaf, layer), in float32, scaled, and
-are stored in the leaf's dtype.
+architecture's layout, its list of `Leaf`, is its reference module's
+`leaves(model)` (`bench/reference/`); a leaf may exist in some layers
+only, and is stacked over those.  Each (leaf, layer) has a generator of
+its own, seeded from (run seed, leaf path, absolute layer), so any layer
+is drawn alone without the others; the draws run on the device in one
+call per (leaf, layer), in float32, scaled, and are stored in the leaf's
+dtype.
 
 Inits: projections N(0, 1/K), and those that write into the residual
 stream (RWKV's w_o and w_out, attention's wo, the MLP's w_down) scaled
@@ -40,13 +43,17 @@ class Leaf:
     dtype: torch.dtype
     init: tuple            # ("normal", std) | ("uniform", lo, hi) | ("one_plus", std)
     stacked: bool
+    layers: tuple | None = None   # the absolute layers it exists in; None: all
 
 
 def is_rwkv(model: dict) -> bool:
     return (model.get("ssm") or {}).get("kind") == "rwkv6"
 
 
-def _proj(path, K, N, dt, bias=False, residual_depth=0):
+def proj(path, K, N, dt, bias=False, residual_depth=0) -> list[Leaf]:
+    """A `(K, N)` projection's leaves, `w` N(0, 1/K) (scaled down by
+    sqrt(2 residual_depth) where it writes into the residual stream) and
+    its bias N(0, 0.1)."""
     std = 1 / math.sqrt(K)
     if residual_depth:
         std /= math.sqrt(2 * residual_depth)
@@ -56,59 +63,34 @@ def _proj(path, K, N, dt, bias=False, residual_depth=0):
     return out
 
 
-def leaves(model: dict) -> list[Leaf]:
-    """Every leaf of the dense tree of `model` (a configuration file's
-    `model` entry), in a fixed order."""
-    D, F, V = model["d_model"], model["d_ff"], model["vocab"]
-    depth = model["n_layers"]
+def base_leaves(model: dict) -> list[Leaf]:
+    """The leaves every architecture here begins with: the embedding, the
+    final norm, the untied head, and each layer's two pre-norms."""
+    D, V = model["d_model"], model["vocab"]
     dt = DTYPES[model["param_dtype"]]
-    f32 = torch.float32
     out = [Leaf(("embed", "tokens"), (V, D), dt, ("normal", 0.02), False),
            Leaf(("final_norm", "scale"), (D,), dt, ("one_plus", 0.1), False)]
     if model.get("tie_embeddings"):
         raise ValueError("tied embeddings are not drawn by this benchmark")
     out.append(Leaf(("lm_head", "w"), (D, V), dt,
                     ("normal", 1 / math.sqrt(D)), False))
-    L = ("layers",)
     for n in ("ln1", "ln2"):
-        out.append(Leaf(L + (n, "scale"), (D,), dt, ("one_plus", 0.1), True))
-    if is_rwkv(model):
-        r = model["ssm"]["lora_rank"]
-        tm, cm = L + ("tm",), L + ("cm",)
-        down, up = ("normal", 1 / math.sqrt(D)), ("uniform", -0.01, 0.01)
-        out += [Leaf(tm + ("lora_A",), (D, r), dt, down, True),
-                Leaf(tm + ("w0",), (D,), f32, ("uniform", -6.0, -1.0), True),
-                Leaf(tm + ("wA",), (D, r), dt, down, True),
-                Leaf(tm + ("wB",), (r, D), dt, up, True),
-                Leaf(tm + ("u",), (D,), f32, ("uniform", -0.5, 0.5), True),
-                Leaf(tm + ("gn_scale",), (D,), dt, ("one_plus", 0.1), True)]
-        for n in ("w_r", "w_k", "w_v", "w_g"):
-            out += _proj(tm + (n,), D, D, dt)
-        out += _proj(tm + ("w_o",), D, D, dt, residual_depth=depth)
-        for n in ("r", "k", "v", "w", "g"):
-            out += [Leaf(tm + (f"mu_{n}",), (D,), dt, ("uniform", 0.0, 1.0),
-                         True),
-                    Leaf(tm + (f"lora_B_{n}",), (r, D), dt, up, True)]
-        out += [Leaf(cm + ("mu_k",), (D,), dt, ("uniform", 0.0, 1.0), True),
-                Leaf(cm + ("mu_r",), (D,), dt, ("uniform", 0.0, 1.0), True)]
-        out += _proj(cm + ("w_in",), D, F, dt)
-        out += _proj(cm + ("w_recv",), D, D, dt)
-        out += _proj(cm + ("w_out",), F, D, dt, residual_depth=depth)
-        return out
-    if model["family"] != "dense" or model.get("qk_norm") \
-            or model.get("act", "swiglu") != "swiglu":
-        raise ValueError(f"{model['name']}: no weight layout for this family")
-    H, K, dh = model["n_heads"], model["n_kv_heads"], model["d_head"]
-    bias = bool(model.get("qkv_bias"))
-    at, mlp = L + ("attn",), L + ("mlp",)
-    out += _proj(at + ("wq",), D, H * dh, dt, bias)
-    out += _proj(at + ("wk",), D, K * dh, dt, bias)
-    out += _proj(at + ("wv",), D, K * dh, dt, bias)
-    out += _proj(at + ("wo",), H * dh, D, dt, residual_depth=depth)
-    out += _proj(mlp + ("w_gate",), D, F, dt)
-    out += _proj(mlp + ("w_up",), D, F, dt)
-    out += _proj(mlp + ("w_down",), F, D, dt, residual_depth=depth)
+        out.append(Leaf(("layers", n, "scale"), (D,), dt, ("one_plus", 0.1),
+                        True))
     return out
+
+
+def leaves(config: dict) -> list[Leaf]:
+    """Every leaf of the dense tree of a configuration file, in a fixed
+    order: its reference module's `leaves` of the file's `model`."""
+    from bench import reference
+    return reference.module(config).leaves(config["model"])
+
+
+def present(leaf: Leaf, n_layers: int) -> list[int]:
+    """The layers of 0 .. n_layers - 1 a stacked leaf exists in."""
+    return [i for i in range(n_layers)
+            if leaf.layers is None or i in leaf.layers]
 
 
 def leaf_seed(seed: int, path: tuple, layer: int | None) -> int:
@@ -144,47 +126,53 @@ def _put(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def draw(model: dict, seed: int, device, n_layers: int) -> dict:
+def draw(config: dict, seed: int, device, n_layers: int) -> dict:
     """The dense parameter tree of `n_layers` layers (layers 0 ..
-    n_layers - 1) on `device`."""
+    n_layers - 1) on `device`: a stacked leaf over the layers it exists
+    in, in order."""
     tree: dict = {}
-    for leaf in leaves(model):
+    for leaf in leaves(config):
         if leaf.stacked:
-            t = torch.empty((n_layers, *leaf.shape), dtype=leaf.dtype,
+            idx = present(leaf, n_layers)
+            if not idx:
+                continue
+            t = torch.empty((len(idx), *leaf.shape), dtype=leaf.dtype,
                             device=device)
-            for i in range(n_layers):
-                draw_leaf(leaf, seed, device, i, out=t[i])
+            for j, i in enumerate(idx):
+                draw_leaf(leaf, seed, device, i, out=t[j])
         else:
             t = draw_leaf(leaf, seed, device)
         _put(tree, leaf.path, t)
     return tree
 
 
-def draw_layer(model: dict, seed: int, device, layer: int) -> dict:
-    """Layer `layer`'s leaves, the `layers` subtree without its L axis."""
+def draw_layer(config: dict, seed: int, device, layer: int) -> dict:
+    """Layer `layer`'s leaves, the `layers` subtree without its L axis:
+    those the layer has."""
     tree: dict = {}
-    for leaf in leaves(model):
-        if leaf.stacked:
+    for leaf in leaves(config):
+        if leaf.stacked and (leaf.layers is None or layer in leaf.layers):
             _put(tree, leaf.path[1:], draw_leaf(leaf, seed, device, layer))
     return tree
 
 
-def draw_top(model: dict, seed: int, device, name: str) -> torch.Tensor:
+def draw_top(config: dict, seed: int, device, name: str) -> torch.Tensor:
     """A leaf outside the layers by its dotted path (`embed.tokens`,
     `final_norm.scale`, `lm_head.w`)."""
     path = tuple(name.split("."))
-    leaf, = [lf for lf in leaves(model) if lf.path == path]
+    leaf, = [lf for lf in leaves(config) if lf.path == path]
     return draw_leaf(leaf, seed, device)
 
 
-def param_counts(model: dict, n_layers: int) -> dict:
-    """Parameters of the tree by part: `layers` (all `n_layers`),
-    `embed`, `head`."""
+def counts(layout: list[Leaf], n_layers: int) -> dict:
+    """Parameters of a tree of leaves `layout` by part: `layers` (those
+    of layers 0 .. n_layers - 1 that each leaf exists in), `embed`,
+    `head`."""
     out = {"layers": 0, "embed": 0, "head": 0}
-    for leaf in leaves(model):
+    for leaf in layout:
         n = math.prod(leaf.shape)
         if leaf.stacked:
-            out["layers"] += n * n_layers
+            out["layers"] += n * len(present(leaf, n_layers))
         elif leaf.path[0] == "embed":
             out["embed"] += n
         elif leaf.path[0] == "lm_head":
@@ -192,3 +180,8 @@ def param_counts(model: dict, n_layers: int) -> dict:
         else:
             out["layers"] += n
     return out
+
+
+def param_counts(config: dict, n_layers: int) -> dict:
+    """`counts` of a configuration file's tree."""
+    return counts(leaves(config), n_layers)
