@@ -325,7 +325,15 @@ package) and prints one JSON object per phase:
      never calls) and the bound, with both errors against float64 (the
      kernel's within twice the blockwise path's); `attention_served` —
      every `model.attention` call of a served qwen2.5-14b prefill takes
-     the `fused` route;
+     the `fused` route; `timing_expert` — the grouped ternary expert
+     kernel at mellum2-12b-a2.5b's expert shapes over 32,768 and 8,192
+     tokens routed top 8 of 64, beside its plain loop, one
+     `torch._grouped_mm` on unpacked codes (`library_ms`, a yardstick the
+     port never calls) and the bound, inside the f32 envelope;
+     `expert_served` — a served mellum2-12b-a2.5b prefill (one period of
+     its layers at published width) runs every expert product on the
+     grouped kernel and every attention call fused, with no assignment
+     dropped;
      `timing_rwkv` and `timing_popcount` — kernel, plain version, bound,
      design and launch floor at the path's shapes (WKV: rwkv6-7b's
      captured prefill, BH 512 x T 96, and decode, T 1 from a state, in
@@ -400,6 +408,16 @@ TM_CHECK_KN = tuple(dict.fromkeys(LM_KN + tuple(
 ATT_GROUPS = ((8, 2048), (4, 1024), (8, 512))
 ATT_HEADS = (40, 8, 128)
 ATT_SERVED = (8, 512)
+# the grouped expert kernel: mellum2-12b-a2.5b's expert matrices (K x N of
+# gate/up and down), its 64 experts top 8, over the tokens of the cell's
+# largest prefill groups (4 x 8192 and 2 x 16384) and of its 2 x 4096 one
+EXPERT_KN = ((2304, 896), (896, 2304))
+EXPERT_E, EXPERT_TOP_K = 64, 8
+EXPERT_TOKENS = (32768, 8192)
+# ... and the prefill served to count its launches: one period of the
+# layer pattern (w, w, w, full) at published width, (rows, prompt tokens)
+# past the 1,024-token window
+EXPERT_SERVED = (2, 2048)
 PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # Card (kernel) against CPU (plain versions) in float32 at full width:
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
@@ -3444,6 +3462,143 @@ def attention_timing(dev) -> list[dict]:
     return rows
 
 
+def expert_timing(dev) -> list[dict]:
+    """`timing_expert`: the grouped ternary expert kernel at Mellum's
+    expert shapes (`EXPERT_KN`), the rows of `EXPERT_TOKENS` tokens routed
+    uniformly at random, top `EXPERT_TOP_K` of `EXPERT_E`: kernel ms, the
+    plain loop over experts, `library_ms` (one `torch._grouped_mm` on the
+    codes unpacked to bf16 beforehand, where this torch has it; a
+    yardstick the port never calls), the bound (each expert's
+    `ternary_bound_ms` of its rows, summed), the (expert, tile) pairs
+    against the grid, and the largest error over the f32 envelope (`eps
+    sqrt(K) |x| |w| |s|` of the float64 product, on 512 rows) of kernel
+    and plain loop; fails past the envelope or when two launches differ.
+    Then `expert_served`: mellum2-12b-a2.5b cut to one period of its
+    layers (w, w, w, full) at published width, ternary in bf16, serves
+    one group of `EXPERT_SERVED` prompts, 1 new token each, through
+    `ServingEngine` under a profiler (so `MOE_STATS` records), its
+    counters reset just before: 3 grouped launches a layer, every
+    attention call `fused`, no assignment dropped.  Returns the timing
+    rows and the served run's counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels import cuda_attention as CA
+    from repro_torch.kernels import cuda_expert_matmul as CE
+    from repro_torch.kernels import expert_matmul as EM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import params as P
+    from repro_torch.roofline.kernel_model import ternary_bound_ms
+    from repro_torch.serve.lm_engine import Request, ServingEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    E, k = EXPERT_E, EXPERT_TOP_K
+    rows = []
+    for T in EXPERT_TOKENS:
+        choice = torch.rand(T, E, device=dev, generator=gen).argsort(-1)
+        counts = torch.bincount(choice[:, :k].reshape(-1), minlength=E)
+        offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]) \
+            .to(torch.int32)
+        cnt = counts.tolist()
+        M = T * k
+        for K, N in EXPERT_KN:
+            x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
+            w2 = torch.randint(-128, 128, (E, K // 4, N), device=dev,
+                               dtype=torch.int8, generator=gen)
+            sc = torch.rand(E, 1, N, device=dev, generator=gen) + 0.5
+            p = CE.plan(M, K, N, E, torch.bfloat16)
+            got = EM.expert_matmul(x, w2, sc, offsets)
+            again = EM.expert_matmul(x, w2, sc, offsets)
+            plain = EM.expert_matmul_plain(x, w2, sc, offsets)
+            pick = torch.randperm(M, device=dev, generator=gen)[:512]
+            which = torch.bucketize(pick, offsets[1:].long(), right=True)
+            w64 = torch.stack([unpack_ternary(w2[e], torch.float64)
+                               for e in which.tolist()])
+            x64, s64 = x[pick].double(), sc[which, 0].double()
+            exact = torch.einsum("mk,mkn->mn", x64, w64) * s64
+            env = float(np.finfo(np.float32).eps) * K ** 0.5 * torch.einsum(
+                "mk,mkn->mn", x64.abs(), w64.abs()) * s64.abs() + 1e-6
+            over = float(((got[pick].double() - exact).abs() / env).max())
+            plain_over = float(((plain[pick].double() - exact).abs()
+                                / env).max())
+            pairs = sum(-(-c // CE.BLOCK_M) for c in cnt)
+            row = {"tokens": T, "M": M, "K": K, "N": N, "E": E,
+                   "rows_min": min(cnt), "rows_max": max(cnt),
+                   "variant": p.variant, "grid": list(p.grid),
+                   "row_tiles_used": pairs, "blocks": p.blocks,
+                   "max_err_over_envelope": over,
+                   "plain_max_err_over_envelope": plain_over,
+                   "bit_identical": bool(torch.equal(got, again))}
+            del got, again, plain, w64
+            row["ms"] = gpu_ms(lambda: EM.expert_matmul(x, w2, sc, offsets),
+                               TIMED_REPS, True)
+            row["plain_ms"] = gpu_ms(
+                lambda: EM.expert_matmul_plain(x, w2, sc, offsets),
+                PLAIN_REPS, True)
+            row["library_ms"] = None
+            if hasattr(torch, "_grouped_mm"):
+                dense = torch.stack([unpack_ternary(w2[e], torch.bfloat16)
+                                     for e in range(E)])
+                offs = offsets[1:].contiguous()
+                try:
+                    row["library_ms"] = gpu_ms(
+                        lambda: torch._grouped_mm(x, dense, offs=offs),
+                        TIMED_REPS, True)
+                except RuntimeError as e:      # a yardstick only
+                    row["library_error"] = str(e)[:200]
+                del dense
+            bound = [ternary_bound_ms(c, K, N, 2) for c in cnt]
+            row["bound_ms"] = sum(b for b, _ in bound)
+            row["bound_by"] = sorted({d for _, d in bound})
+            rows.append(row)
+            say("timing_expert", **row)
+            if over > 1 or plain_over > 1 or not row["bit_identical"]:
+                fail(f"timing_expert: ({M}, {K}, {N}) error over the "
+                     f"envelope {over} (plain {plain_over}), bit-identical "
+                     f"{row['bit_identical']}")
+            del x, w2, sc
+            torch.cuda.empty_cache()
+
+    full = get_config("mellum2-12b-a2.5b")
+    cfg = full.replace(n_layers=4, layer_types=full.layer_types[:4],
+                       quant="ternary_packed", param_dtype="bfloat16",
+                       compute_dtype="bfloat16")
+    rows_served, plen = EXPERT_SERVED
+    engine = ServingEngine(cfg, P.serving_params(cfg, SEED, dev),
+                           max_batch=rows_served, cache_len=plen + 1,
+                           device=dev)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                    max_new_tokens=1) for i in range(rows_served)]
+    CE.reset_launches()
+    CA.reset_launches()
+    MOE.MOE_STATS.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        engine.run(reqs)
+    torch.cuda.synchronize()
+    stats = MOE.MOE_STATS.summary()
+    MOE.MOE_STATS.reset()
+    served = {"arch": cfg.name, "n_layers": cfg.n_layers,
+              "layer_types": list(cfg.layer_types), "rows": rows_served,
+              "prompt_tokens": plen,
+              "launches": CE.LAUNCHES["expert_matmul"],
+              "expected": 3 * cfg.n_layers,
+              "attention_by_route": dict(CA.VARIANT_LAUNCHES),
+              "moe_calls": stats["calls"], "dropped": stats["dropped"],
+              "peak_load": max(stats["peak_load"], default=None)}
+    say("expert_served", **served)
+    if served["launches"] != 3 * cfg.n_layers or stats["dropped"] \
+            or stats["calls"] != cfg.n_layers or served[
+                "attention_by_route"] != {"fused": cfg.n_layers,
+                                          "blockwise": 0}:
+        fail(f"expert_served: {served}")
+    del engine
+    torch.cuda.empty_cache()
+    return rows, served
+
+
 def wkv_bwd_check(args: tuple, dy, ds, stats: dict) -> None:
     """The WKV-6 backward kernel on `(B, T, H, dh)` operands (r, k, v, w,
     u, s0; s0 and the final state's gradient `ds` may be None), from the
@@ -4252,6 +4407,7 @@ def main() -> int:
     from repro_torch.kernels import circuit_sim as CS
     from repro_torch.kernels import cuda_attention as CA
     from repro_torch.kernels import cuda_circuit_sim as CK
+    from repro_torch.kernels import cuda_expert_matmul as CE
     from repro_torch.kernels import cuda_packed_popcount as CP
     from repro_torch.kernels import cuda_rwkv6_scan as CW
     from repro_torch.kernels import cuda_ternary_matmul as CT
@@ -4273,7 +4429,7 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    wrappers = (CK, CT, CP, CW, CA)
+    wrappers = (CK, CT, CP, CW, CA, CE)
     libs = _build.build([m.SOURCE for m in wrappers])  # one nvcc each, together
     for m in wrappers:
         m._lib()
@@ -4727,6 +4883,7 @@ def main() -> int:
 
     tm_rows = ternary_timing(dev)
     attention_timing(dev)
+    ex_rows, ex_served = expert_timing(dev)
     wkv_rows, pop_rows = rwkv_popcount_timing(rwkv, {
         "arrhythmia readings": reading_words,
         "random": torch.randint(-2 ** 31, 2 ** 31 - 1, (65536, 32),
@@ -4741,6 +4898,8 @@ def main() -> int:
     tm_main, tm_prefill = (next(r for r in tm_rows
                                 if (r["M"], r["K"], r["N"]) == (M, 2048, 8192))
                            for M in (8, 768))
+    ex_main = next(r for r in ex_rows
+                   if (r["tokens"], r["K"], r["N"]) == (32768, 2304, 896))
     src = "src/repro_torch/kernels/csrc/circuit_sim.cu"
     kernels = [
         {"name": "fused_eval_uint", "route": "cuda", "source": src,
@@ -4930,6 +5089,24 @@ def main() -> int:
              "P", "ctas", "ctas_per_sm", "warps_per_sm")},
          "shape": "rwkv6-7b training microbatch: (2, 256, 64, 64) bf16, "
                   "u (64, 64)"},
+        {"name": "expert_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
+         "replaces": None,
+         "note": "no Pallas kernel: the reference's MoE multiplies dense "
+                 "experts over capacity slots with einsums "
+                 "(src/repro/models/moe.py); this serves the port's "
+                 "dropless MoE",
+         "launches": ex_served["launches"],
+         "served": ex_served,
+         "max_err_over_envelope": max(r["max_err_over_envelope"]
+                                      for r in ex_rows),
+         "ms": ex_main["ms"], "plain_ms": ex_main["plain_ms"],
+         "bound_ms": ex_main["bound_ms"], "bound_by": ex_main["bound_by"],
+         "library_ms": ex_main["library_ms"],
+         "cases": len(ex_rows),
+         "mismatches": sum(r["max_err_over_envelope"] > 1 for r in ex_rows),
+         "shape": "mellum2-12b-a2.5b w_gate over 32768 tokens top 8 of "
+                  "64 experts: M 262144, K 2304, N 896, bf16"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,7 +2,9 @@
 
 `get_config(name)` resolves an arch id to its `ModelConfig`, the port's own
 copy of the reference's config file; `ARCHS` lists the ten ids in the
-reference's order.  An unknown id raises `KeyError`.  `SHAPES` and
+reference's order, `PORT_ONLY` the archs the reference does not have
+(`mellum2-12b-a2.5b`), which `get_config` resolves too.  An unknown id
+raises `KeyError`.  `SHAPES` and
 `shape_applicable` are the dry-run cells (`configs.base`).
 """
 from __future__ import annotations
@@ -10,11 +12,13 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (
-    SHAPES, ModelConfig, MoESpec, ShapeConfig, SSMSpec, shape_applicable,
+    SHAPES, ModelConfig, MoESpec, RopeSpec, ShapeConfig, SSMSpec,
+    shape_applicable,
 )
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "MoESpec", "SSMSpec",
-           "ShapeConfig", "get_config", "shape_applicable"]
+__all__ = ["ARCHS", "PORT_ONLY", "SHAPES", "ModelConfig", "MoESpec",
+           "RopeSpec", "SSMSpec", "ShapeConfig", "get_config",
+           "shape_applicable"]
 
 ARCHS: tuple[str, ...] = (
     "qwen2-vl-72b",
@@ -29,8 +33,10 @@ ARCHS: tuple[str, ...] = (
     "rwkv6-7b",
 )
 
+PORT_ONLY: tuple[str, ...] = ("mellum2-12b-a2.5b",)
+
 _MODULES = {name: "repro_torch.configs." + name.replace("-", "_")
-            .replace(".", "_") for name in ARCHS}
+            .replace(".", "_") for name in ARCHS + PORT_ONLY}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -3,9 +3,10 @@
 Each `.cu` file is compiled by `nvcc` on its own into a `.so` with a plain
 C interface (no PyTorch headers, so a build takes seconds) and loaded with
 `ctypes`.  Libraries land in `build/repro_torch/` at the repository root,
-named by a digest of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  All requested sources
-compile in parallel, one `nvcc` process each.
+named by a digest of the source, the headers beside it (`csrc/*.cuh`) and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as it is.  All requested sources compile in parallel, one
+`nvcc` process each.
 """
 from __future__ import annotations
 
@@ -36,9 +37,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to: keyed on its content and flags."""
+    """Where `csrc/<source>` builds to: keyed on its content, the
+    headers' and the flags."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{key}.so"
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import expert_matmul as EM
 from repro_torch.kernels import packed_popcount as PP
 from repro_torch.kernels import rwkv6_scan as WKV
 from repro_torch.kernels import ternary_matmul as TM
@@ -25,6 +26,15 @@ def ternary_matmul(x: torch.Tensor, w2: torch.Tensor,
     lead = x.shape[:-1]
     y = TM.ternary_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w2, scale)
     return y.reshape(*lead, w2.shape[1])
+
+
+def expert_matmul(x: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """Rows of `(M, K)` x grouped by expert (`offsets` `(E + 1,)` int32)
+    times each expert's packed `(E, K//4, N)` ternary codes and `(E, 1,
+    N)` scale -> `(M, N)` f32 (the port's own entry: the reference has no
+    grouped product)."""
+    return EM.expert_matmul(x, w2, scale, offsets)
 
 
 def packed_popcount(words: torch.Tensor) -> torch.Tensor:

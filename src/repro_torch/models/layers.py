@@ -12,9 +12,15 @@ quantization modes of the config:
                        `kernels.ops.ternary_matmul`, which on the card is
                        the hand-written kernel.
 
-`mrope_cos_sin` is Qwen2-VL's multimodal RoPE.
+`mrope_cos_sin` is Qwen2-VL's multimodal RoPE; `rope_spec_cos_sin` the
+rope of one layer kind (`configs.base.RopeSpec`: default, or YaRN by the
+formula of HF transformers' `_compute_yarn_parameters`), its angles taken
+in float64.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -67,6 +73,57 @@ def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float
     freqs = torch.from_numpy(_rope_freqs(d_head, theta)).to(positions.device)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def rope_inv_freq(d_head: int, spec) -> tuple[np.ndarray, float]:
+    """`(inverse frequencies (d_head // 2,) float64, attention factor)` of
+    a `RopeSpec`.  Default: theta^(-2i/dh), factor 1.  YaRN: the
+    correction dims of `beta_fast` and `beta_slow` rotations over the
+    original context, dh ln(orig / (2 pi beta)) / (2 ln theta), floored
+    and ceiled and clamped to [0, dh - 1]; a linear ramp between them
+    over the dh / 2 frequency indices blends each frequency from
+    extrapolated (theta^(-2i/dh), below the low dim) to interpolated
+    (that over `factor`, above the high dim); the attention factor is
+    `attention_factor`, or 0.1 ln(factor) + 1 when it is None."""
+    base = spec.theta
+    pos_freqs = base ** (np.arange(0, d_head, 2, dtype=np.float64) / d_head)
+    if spec.rope_type == "default":
+        return 1.0 / pos_freqs, 1.0
+    if spec.rope_type != "yarn":
+        raise ValueError(f"unknown rope type {spec.rope_type!r}; use "
+                         "'default' or 'yarn'")
+    factor, orig = spec.factor, spec.original_max_position_embeddings
+    af = spec.attention_factor
+    if af is None:
+        af = 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+    def dim(rotations: float) -> float:
+        return d_head * math.log(orig / (rotations * 2 * math.pi)) \
+            / (2 * math.log(base))
+
+    low = max(math.floor(dim(spec.beta_fast)), 0)
+    high = min(math.ceil(dim(spec.beta_slow)), d_head - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(d_head // 2) - low) / (high - low), 0.0, 1.0)
+    inv = (1.0 / (factor * pos_freqs)) * ramp + (1.0 / pos_freqs) * (1 - ramp)
+    return inv, float(af)
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_freq_on(d_head: int, spec, device: torch.device):
+    inv, af = rope_inv_freq(d_head, spec)
+    return torch.from_numpy(inv).to(device), af
+
+
+def rope_spec_cos_sin(positions: torch.Tensor, d_head: int, spec
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, d_head//2) f32 of a
+    `RopeSpec`: angles in float64, both tables times its attention
+    factor."""
+    inv, af = _inv_freq_on(d_head, spec, positions.device)
+    ang = positions.double()[..., None] * inv
+    return (torch.cos(ang) * af).float(), (torch.sin(ang) * af).float()
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

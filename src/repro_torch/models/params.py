@@ -48,6 +48,7 @@ class ParamDef:
     init: str = "normal"       # normal | zeros | ones
     init_scale: float | None = None
     lin: bool = False          # a `_lin` projection: follows cfg.quant
+    experts: bool = False      # an MoE expert stack (L, E, K, N)
 
 
 def is_rwkv(cfg: ModelConfig) -> bool:
@@ -155,19 +156,35 @@ def _mlp_defs(cfg: ModelConfig, L: int, d_ff: int) -> dict:
             "w_out": _lin(cfg, d_ff, D, L, True)}
 
 
+def ternary_experts(cfg: ModelConfig) -> bool:
+    """Whether the MoE experts are 2-bit codes: on the dropless path (a
+    port-only option) under `ternary_packed`.  The capacity path keeps
+    them dense, as the reference's `moe_ffn` does."""
+    return cfg.moe is not None and cfg.moe.dropless \
+        and cfg.quant == "ternary_packed"
+
+
 def _moe_defs(cfg: ModelConfig, L: int) -> dict:
     """Router (L, D, E) in float32 and the experts stacked over E in the
     param dtype; plain leaves, dense under every quant (the reference's
-    `moe_ffn` multiplies them raw)."""
+    `moe_ffn` multiplies them raw), except on the dropless path under
+    `ternary_packed` (`ternary_experts`), where each is packed codes
+    `{"w2": (L, E, K//4, N), "scale": (L, E, 1, N)}` (an alpha a layer,
+    expert and column)."""
     D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     dt = DTYPES[cfg.param_dtype]
+
+    def expert(K: int, N: int):
+        if ternary_experts(cfg):
+            return {"w2": ParamDef((L, E, K // 4, N), torch.int8, "zeros"),
+                    "scale": ParamDef((L, E, 1, N), torch.float32, "ones")}
+        return ParamDef((L, E, K, N), dt, "normal", 1.0 / np.sqrt(K),
+                        experts=True)
+
     return {
         "router": {"w": ParamDef((L, D, E), torch.float32, "normal", 0.02)},
-        "experts": {
-            "w_gate": ParamDef((L, E, D, F), dt, "normal", 1.0 / np.sqrt(D)),
-            "w_up": ParamDef((L, E, D, F), dt, "normal", 1.0 / np.sqrt(D)),
-            "w_down": ParamDef((L, E, F, D), dt, "normal", 1.0 / np.sqrt(F)),
-        },
+        "experts": {"w_gate": expert(D, F), "w_up": expert(D, F),
+                    "w_down": expert(F, D)},
     }
 
 
@@ -321,12 +338,14 @@ def _packed(layers) -> dict:
 def quantize_params(cfg: ModelConfig, dense: dict) -> dict:
     """The serving tree of `cfg` from `dense`, a tree of the same arch
     under `quant="dense"`: for `ternary_packed` each `_lin` projection is
-    quantized per layer and packed on its own device (its bias kept);
-    every other leaf is passed through.  Any other quant returns `dense`.
+    quantized per layer and packed on its own device (its bias kept), and
+    with `ternary_experts` each expert stack per layer and expert; every
+    other leaf is passed through.  Any other quant returns `dense`.
     """
     if cfg.quant != "ternary_packed":
         return dense
     defs = param_defs(cfg.replace(quant="dense"))
+    packed_experts = ternary_experts(cfg)
 
     def walk(node: dict, dnode: dict) -> dict:
         out = {}
@@ -335,6 +354,10 @@ def quantize_params(cfg: ModelConfig, dense: dict) -> dict:
                 out[k] = walk(v, dnode[k])
             elif k == "w" and dnode[k].lin:
                 out.update(_packed(v))
+            elif packed_experts and dnode[k].experts:
+                L, E = v.shape[:2]
+                out[k] = {n: t.reshape(L, E, *t.shape[1:]) for n, t in
+                          _packed(v.flatten(0, 1)).items()}
             else:
                 out[k] = v
         return out

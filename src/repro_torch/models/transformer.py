@@ -9,8 +9,10 @@ copy of the whole cache per step).  The families:
 
   * dense (llama, the Qwen archs: QKV bias, qk-norm, a decoupled head_dim,
     tied embeddings) and MoE (`models.moe`; arctic adds a dense residual
-    FFN in parallel), with sliding-window attention where the config has
-    it;
+    FFN in parallel; mellum routes dropless), with sliding-window attention
+    where the config has it: in every layer, or, with `cfg.layer_types`,
+    in the `sliding_attention` layers only, each layer kind with its own
+    rope (`cfg.layer_rope`: default or YaRN);
   * hybrid (hymba): attention and a Mamba head on the same normed input,
     their normed outputs averaged;
   * encoder-decoder (whisper): an encoder stack over the frame embeddings
@@ -31,7 +33,8 @@ Training: `loss_fn` is the reference's objective, the mean label NLL from
 `MOE_AUX_COEF` times the MoE load-balancing loss `forward` carries; with
 `cfg.remat` each layer is recomputed in the backward pass.  While a
 profiler records, each attention call (scores, mask, softmax, values) is
-the span `model.attention`, and the loss's forward and backward are
+the span `model.attention` (attr `window`: the layer's window, or None),
+each MoE FFN `model.moe`, and the loss's forward and backward are
 `model.loss` and `model.loss.backward` (`repro_torch.trace`).
 
 Batch dict keys: tokens (B, S) int64 or int32 [+ labels (B, S), pad =
@@ -39,7 +42,11 @@ Batch dict keys: tokens (B, S) int64 or int32 [+ labels (B, S), pad =
 (B, 3, S) for M-RoPE] [+ vision_embeds (B, Nv, D) for a VLM] [+ enc_frames
 (B, enc_seq, D) for an encoder-decoder].  The KV cache is stored in the
 compute dtype or, with `kv_cache_dtype="float8_e4m3fn"`, in fp8 (written
-by a cast, read back to float32), as the reference does.
+by a cast, read back to float32), as the reference does.  A model whose
+layers mix window and full attention keeps the two kinds side by side:
+`k` / `v` stack its full layers' caches (`cache_len` slots) and `k_win` /
+`v_win` its windowed layers' (a rolling cache of `min(cache_len,
+window)` slots), each layer at its place among the layers of its kind.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (
     apply_rope, embed, layer_norm, linear, mrope_cos_sin, rms_norm,
-    rope_cos_sin,
+    rope_cos_sin, rope_spec_cos_sin,
 )
 from repro_torch.models.params import DTYPES, check_ported, is_hybrid, \
     is_rwkv
@@ -121,7 +128,7 @@ def _attn_full(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin, *,
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    with TR.span("model.attention"):
+    with TR.span("model.attention", window=window):
         o = ATT.blockwise_attention(q, k, v, causal=causal, window=window,
                                     block_k=cfg.attn_block_k)
     out = linear(p["wo"], o.reshape(B, S, H * dh), cfg.quant)
@@ -158,26 +165,30 @@ def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor):
     the MoE's load-balancing loss (zero without one)."""
     if cfg.moe is None:
         return _mlp(cfg, lp["mlp"], h), _zero(h)
-    y, aux = MOE.moe_ffn(lp["moe"], h, n_experts=cfg.moe.n_experts,
-                         top_k=cfg.moe.top_k,
-                         capacity_factor=cfg.moe.capacity_factor)
+    with TR.span("model.moe"):
+        y, aux = MOE.moe_ffn(lp["moe"], h, n_experts=cfg.moe.n_experts,
+                             top_k=cfg.moe.top_k,
+                             capacity_factor=cfg.moe.capacity_factor,
+                             dropless=cfg.moe.dropless)
     if cfg.moe.dense_residual:
         y = y + _mlp(cfg, lp["mlp"], h)
     return y, aux
 
 
 # Full-sequence blocks return (x, aux, cache entry), as the reference's.
-def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
+def _block_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
+                 window: int | None):
     a, kv = _attn_full(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), cos, sin,
-                       window=cfg.swa_window)
+                       window=window)
     x = x + a
     y, aux = _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))
     return x + y, aux, kv
 
 
-def _block_hybrid(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin):
+def _block_hybrid(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
+                  window: int | None):
     h = _norm(cfg, lp["ln1"], x)
-    a, kv = _attn_full(cfg, lp["attn"], h, cos, sin, window=cfg.swa_window)
+    a, kv = _attn_full(cfg, lp["attn"], h, cos, sin, window=window)
     m, mstate = SSM.mamba_forward(lp["mamba"], h)
     x = x + 0.5 * (_norm(cfg, lp["attn_out_norm"], a)
                    + _norm(cfg, lp["mamba_out_norm"], m))
@@ -222,31 +233,39 @@ def _block_dec_xattn(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 
 
 def apply_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
-                cos=None, sin=None, enc_out: torch.Tensor | None = None):
+                cos=None, sin=None, enc_out: torch.Tensor | None = None,
+                index: int | None = None):
     """One full-sequence layer (the stack's body), standalone: `(x, aux,
     cache entry)`.  The reference's `apply_block`; `forward` runs every
-    layer through it and `roofline.component_costing` costs one."""
+    layer through it and `roofline.component_costing` costs one.  `index`
+    (the absolute layer) picks the attention window where the layers'
+    kinds differ (`cfg.layer_window`)."""
+    window = cfg.layer_window(index)
     if is_rwkv(cfg):
         return _block_rwkv(cfg, lp, x)
     if is_hybrid(cfg):
-        return _block_hybrid(cfg, lp, x, cos, sin)
+        return _block_hybrid(cfg, lp, x, cos, sin, window)
     if cfg.enc_layers and enc_out is not None:
         return _block_dec_xattn(cfg, lp, x, enc_out, cos, sin)
-    return _block_dense(cfg, lp, x, cos, sin)
+    return _block_dense(cfg, lp, x, cos, sin, window)
 
 
 def layer_body(cfg: ModelConfig, *, cos=None, sin=None,
-               enc_out: torch.Tensor | None = None):
-    """`_stack`'s body `(x, lp) -> (x, aux, entry)` for decoder layers:
-    `apply_block` with the step's rope tables and encoder output."""
-    def body(x, lp):
-        return apply_block(cfg, lp, x, cos=cos, sin=sin, enc_out=enc_out)
+               enc_out: torch.Tensor | None = None,
+               ropes: dict | None = None):
+    """`_stack`'s body `(x, lp, i) -> (x, aux, entry)` for decoder layers:
+    `apply_block` of layer i with the step's rope tables (`ropes`, by
+    layer kind, where the kinds have their own) and encoder output."""
+    def body(x, lp, i):
+        c, s = (cos, sin) if ropes is None else ropes[cfg.layer_kind(i)]
+        return apply_block(cfg, lp, x, cos=c, sin=s, enc_out=enc_out,
+                           index=i)
     return body
 
 
 def encoder_body(cfg: ModelConfig):
     """`_stack`'s body for encoder layers (whisper)."""
-    def body(x, lp):
+    def body(x, lp, i):
         return _block_enc(cfg, lp, x), _zero(x), None
     return body
 
@@ -265,9 +284,16 @@ def _rope_for(cfg: ModelConfig, batch: dict, S: int, B: int, device):
     return rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
+def _kind_ropes(cfg: ModelConfig, pos: torch.Tensor) -> dict:
+    """`{layer kind: (cos, sin)}` at `pos` (..., S), each kind's own rope
+    (`cfg.layer_rope`)."""
+    return {kind: rope_spec_cos_sin(pos, cfg.head_dim, cfg.layer_rope(kind))
+            for kind in sorted(set(cfg.layer_types))}
+
+
 def _stack(cfg: ModelConfig, layers: dict, n: int, x: torch.Tensor, body,
            collect_cache: bool):
-    """`body(x, lp) -> (x, aux, entry)` over n stacked layers: the
+    """`body(x, lp, i) -> (x, aux, entry)` over n stacked layers: the
     reference's scan.  With `cfg.remat`, where autograd records, each
     layer runs under `torch.utils.checkpoint` (the reference's
     `jax.checkpoint` on the scanned body): its activations are
@@ -275,12 +301,12 @@ def _stack(cfg: ModelConfig, layers: dict, n: int, x: torch.Tensor, body,
     (x, summed aux, entries | None)."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux, caches = _zero(x), []
-    for lp in _unstack(layers, n):
+    for i, lp in enumerate(_unstack(layers, n)):
         if remat:
             x, aux_l, entry = torch.utils.checkpoint.checkpoint(
-                body, x, lp, use_reentrant=False)
+                body, x, lp, i, use_reentrant=False)
         else:
-            x, aux_l, entry = body(x, lp)
+            x, aux_l, entry = body(x, lp, i)
         aux = aux + aux_l
         if collect_cache:
             caches.append(entry)
@@ -307,8 +333,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             raise ValueError(f"{cfg.name}: a prompt of {S} tokens is shorter "
                              f"than its {ve.shape[1]} vision embeddings")
         x = torch.cat([ve.to(comp), x[:, ve.shape[1]:]], dim=1)
-    cos = sin = enc_out = None
-    if not is_rwkv(cfg):
+    cos = sin = enc_out = ropes = None
+    if cfg.layer_types:
+        pos = batch.get("positions")
+        ropes = _kind_ropes(cfg, torch.arange(S, device=x.device)[None, :]
+                            if pos is None else pos)
+    elif not is_rwkv(cfg):
         cos, sin = _rope_for(cfg, batch, S, B, x.device)
         if cfg.enc_layers:
             enc = batch["enc_frames"].to(comp) \
@@ -317,7 +347,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
                                enc, encoder_body(cfg), False)
             enc_out = _norm(cfg, params["enc_final_norm"], enc)
             x = x + params["dec_pos"][:S][None].to(comp)
-    body = layer_body(cfg, cos=cos, sin=sin, enc_out=enc_out)
+    body = layer_body(cfg, cos=cos, sin=sin, enc_out=enc_out, ropes=ropes)
     # a depth-0 tree (the costing's embedding and head alone) has no stack
     layers = params["layers"] if cfg.n_layers else {}
     x, aux, caches = _stack(cfg, layers, cfg.n_layers, x, body,
@@ -404,15 +434,40 @@ class CacheSpec(NamedTuple):
 
 
 def cache_spec(cfg: ModelConfig, seq_len: int) -> CacheSpec:
+    """The cache's kind and slots (of the full layers where window and
+    full layers mix: `window_slots` gives the windowed layers')."""
     check_ported(cfg)
     if is_rwkv(cfg):
         return CacheSpec("rwkv", 0)
-    eff = min(seq_len, cfg.swa_window) if cfg.swa_window else seq_len
+    eff = min(seq_len, cfg.swa_window) \
+        if cfg.swa_window and not cfg.mixed_attention else seq_len
     if is_hybrid(cfg):
         return CacheSpec("hybrid", eff)
     if cfg.enc_layers:
         return CacheSpec("encdec", eff)
     return CacheSpec("attn", eff)
+
+
+def window_slots(cfg: ModelConfig, seq_len: int) -> int:
+    """Slots of a windowed layer's cache where window and full layers
+    mix: the window, or `seq_len` when that is shorter."""
+    return min(seq_len, cfg.swa_window)
+
+
+def _kind_layers(cfg: ModelConfig, kind: str) -> list[int]:
+    """The absolute layers of one kind, in order."""
+    return [i for i in range(cfg.n_layers) if cfg.layer_kind(i) == kind]
+
+
+def layer_cache(cfg: ModelConfig, cache: dict, i: int) -> dict:
+    """Layer i's cache entries: views into the model's cache."""
+    if not cfg.mixed_attention or "k" not in cache:
+        return _layer(cache, i)
+    kind = cfg.layer_kind(i)
+    j = _kind_layers(cfg, kind).index(i)
+    win = kind == "sliding_attention"
+    return {"k": cache["k_win" if win else "k"][j],
+            "v": cache["v_win" if win else "v"][j]}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
@@ -432,6 +487,13 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
                 "shift_cm": zeros((L, B, D), comp),
                 "wkv": zeros((L, B, cfg.n_heads, dh, dh), torch.float32)}
     K, dh, kvdt = cfg.n_kv_heads, cfg.head_dim, _kv_dt(cfg)
+    if cfg.mixed_attention and spec.kind == "attn":
+        nw = len(_kind_layers(cfg, "sliding_attention"))
+        W = window_slots(cfg, seq_len)
+        return {"k": zeros((L - nw, B, spec.cache_len, K, dh), kvdt),
+                "v": zeros((L - nw, B, spec.cache_len, K, dh), kvdt),
+                "k_win": zeros((nw, B, W, K, dh), kvdt),
+                "v_win": zeros((nw, B, W, K, dh), kvdt)}
     c = {n: zeros((L, B, spec.cache_len, K, dh), kvdt) for n in ("k", "v")}
     if spec.kind == "hybrid":
         di = cfg.ssm.expand * D
@@ -459,7 +521,10 @@ def _attn_decode(cfg, lp, x, cache_k, cache_v, cos, sin, mask, slot: int):
 
 
 def _decode_rope(cfg: ModelConfig, pos: int, B: int, device,
-                 positions: torch.Tensor | None):
+                 positions: torch.Tensor | None, kind: str | None = None):
+    if kind is not None:
+        return rope_spec_cos_sin(torch.full((1, 1), pos, device=device),
+                                 cfg.head_dim, cfg.layer_rope(kind))
     if cfg.rope == "mrope":
         p3 = positions if positions is not None else \
             torch.full((B, 3, 1), pos, device=device)
@@ -513,17 +578,21 @@ def apply_block_decode(cfg: ModelConfig, lp: dict, cl: dict,
 
 
 def decode_context(cfg: ModelConfig, cache: dict, pos: int, B: int, device,
-                   positions: torch.Tensor | None = None):
-    """What every layer of a decode step at `pos` shares: `(cos, sin,
+                   positions: torch.Tensor | None = None,
+                   layer_kind: str | None = None):
+    """What every layer (of `layer_kind`, where `cfg.layer_types` gives
+    the layers' kinds) of a decode step at `pos` shares: `(cos, sin,
     mask, slot, xmask)`, the rope tables, the self-attention mask and the
     cache slot the step writes, and the cross-attention mask of an
     encoder-decoder (None elsewhere; all None for RWKV-6)."""
     kind = cache_spec(cfg, 0).kind
     if kind == "rwkv":
         return None, None, None, None, None
-    Sc = int(cache["k"].shape[2])
-    cos, sin = _decode_rope(cfg, pos, B, device, positions)
-    rolling = cfg.swa_window is not None and Sc == cfg.swa_window
+    win = layer_kind == "sliding_attention" and "k_win" in cache
+    Sc = int(cache["k_win" if win else "k"].shape[2])
+    cos, sin = _decode_rope(cfg, pos, B, device, positions, layer_kind)
+    window = cfg.kind_window(layer_kind)
+    rolling = window is not None and Sc == window
     if rolling:
         slot = ATT.rolling_slot(pos, Sc)
         mask = ATT.rolling_mask(pos, Sc, device)
@@ -552,12 +621,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """
     comp = _cdt(cfg)
     x = embed(params["embed"]["tokens"], tokens, comp)
-    ctx = decode_context(cfg, cache, pos, x.shape[0], x.device, positions)
+    ctx = {kind: decode_context(cfg, cache, pos, x.shape[0], x.device,
+                                positions, kind)
+           for kind in sorted(set(cfg.layer_types)) or [None]}
     if cfg.enc_layers:
         x = x + params["dec_pos"][pos:pos + 1][None].to(comp)
     for i in range(cfg.n_layers):
         x, _ = apply_block_decode(cfg, _layer(params["layers"], i),
-                                  _layer(cache, i), x, pos, *ctx)
+                                  layer_cache(cfg, cache, i), x, pos,
+                                  *ctx[cfg.layer_kind(i)])
     x = _norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), cache
 
@@ -567,7 +639,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
 
     Returns (hidden (B, S, D), cache ready for `decode_step` at pos=S),
     K/V cast to the KV dtype.  For SWA archs requires S % window == 0 when
-    S exceeds the window (slot order == position order).
+    S exceeds the window (slot order == position order); the windowed
+    layers of a model that mixes window and full layers take any S.
     """
     x, _, caches = forward(cfg, params, batch, collect_cache=True)
     return x, assemble_cache(cfg, caches, x.shape[1], cache_len)
@@ -583,6 +656,8 @@ def assemble_cache(cfg: ModelConfig, caches: list, S: int,
                 for n, name in enumerate(SSM.RWKVState._fields)}
     spec = cache_spec(cfg, cache_len)
     Sc = spec.cache_len
+    if cfg.mixed_attention and spec.kind == "attn":
+        return _assemble_mixed(cfg, caches, S, cache_len)
 
     def fit(t: torch.Tensor) -> torch.Tensor:
         # (L, B, S, K, dh) -> (L, B, Sc, K, dh)
@@ -607,4 +682,34 @@ def assemble_cache(cfg: ModelConfig, caches: list, S: int,
     if spec.kind == "encdec":
         out["xk"] = stacked((c[1][0] for c in caches), kvdt)
         out["xv"] = stacked((c[1][1] for c in caches), kvdt)
+    return out
+
+
+def _assemble_mixed(cfg: ModelConfig, caches: list, S: int,
+                    cache_len: int) -> dict:
+    """`assemble_cache` where window and full layers mix: the full layers'
+    K/V padded to `cache_len` slots, the windowed layers' last `W =
+    window_slots` positions with position p at slot p % W (the rolling
+    cache's order), or padded when S is shorter."""
+    kvdt = _kv_dt(cfg)
+    W = window_slots(cfg, cache_len)
+
+    def full(t: torch.Tensor) -> torch.Tensor:     # (B, S, K, dh)
+        if cache_len < S:
+            raise ValueError(f"a prefill of {S} tokens does not fit a cache "
+                             f"of {cache_len} slots")
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cache_len - S))
+
+    def rolling(t: torch.Tensor) -> torch.Tensor:
+        if S <= W:
+            return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, W - S))
+        return torch.roll(t[:, S - W:], shifts=S % W, dims=1)
+
+    out = {}
+    for kind, fit, suffix in (("full_attention", full, ""),
+                              ("sliding_attention", rolling, "_win")):
+        idx = _kind_layers(cfg, kind)
+        for n, name in enumerate(("k", "v")):
+            out[name + suffix] = torch.stack(
+                [fit(caches[i][n]) for i in idx]).to(kvdt).contiguous()
     return out

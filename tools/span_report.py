@@ -11,7 +11,8 @@ program's spans (`repro_torch.trace`, read by `bench/spans.py`): each
 span's count, device seconds and top kernels in the window, the share of the
 window's kernel time launched inside the outermost spans (`train.step`,
 `serve.group`), and the idle gaps by the innermost span at their
-midpoint.
+midpoint; for a program with `MOE_STATS`, its MoE calls, assignments,
+dropped assignments and largest expert load over the mean.
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ def report(workload: str, seed: int, seconds: float) -> dict:
                            "kernels": [[k[:100], t] for k, t in top]}
     out["coverage"] = {n: out["spans"][n]["device_s"] / kernel_s
                        for n in OUTERMOST if n in sp}
+    from repro_torch.models import moe
+    if hasattr(moe, "MOE_STATS"):
+        st = moe.MOE_STATS.summary()
+        peak = st.pop("peak_load")
+        out["moe_stats"] = dict(st, peak_load_mean=(
+            sum(peak) / len(peak) if peak else None),
+            peak_load_max=max(peak, default=None))
     out["idle_by_span"] = spans.idle_by_span(run)
     return out
 
