@@ -260,9 +260,11 @@ package) and prints one JSON object per phase:
      parameter held); rwkv6-7b at its published width cut to 4 of 32
      layers (~1.4 B parameters, dense bf16, int8 AdamW moments, int8
      gradient compression, 4 x 256 tokens in 2 microbatches, 6 steps),
-     the WKV counters zeroed just before and read just after: forward
-     twice a layer a microbatch a step (remat), backward once, no
-     ternary-matmul launch; one step under `torch.profiler` (busy share);
+     the WKV counters and the head's (`cuda_ce_head`) zeroed just before
+     and read just after: forward twice a layer a microbatch a step
+     (remat), backward once, no ternary-matmul launch, every loss call
+     on the `fused` route with its 2 forward and 3 a chunk backward
+     kernel launches; one step under `torch.profiler` (busy share);
      the backward kernel timed at the training shape on layer 0's
      captured operands beside its plain version and bound
      (`timing_rwkv_bwd`); llama3.2-1b at full width and depth in
@@ -333,7 +335,13 @@ package) and prints one JSON object per phase:
      `expert_served` — a served mellum2-12b-a2.5b prefill (one period of
      its layers at published width) runs every expert product on the
      grouped kernel and every attention call fused, with no assignment
-     dropped;
+     dropped; `timing_ce_head` — the training head and cross-entropy's
+     kernels (`ce_lse` forward, `ce_grad`, `ce_dx`, `ce_dw` backward) at
+     rwkv6-7b's microbatch (`CE_HEAD`), forward and backward, beside
+     the plain route, the port's f32 chunk path (`plain_ms` and
+     `library_ms`, one reading: the route bf16 calls no longer take, on
+     cuBLAS) and the bound (8 passes at the bf16 rate), with the NLL,
+     dX and dW against float64 and two launches bit-identical;
      `timing_rwkv` and `timing_popcount` — kernel, plain version, bound,
      design and launch floor at the path's shapes (WKV: rwkv6-7b's
      captured prefill, BH 512 x T 96, and decode, T 1 from a state, in
@@ -359,6 +367,8 @@ package) and prints one JSON object per phase:
      scan's at the f32 prefill, with `decode`, `model_layout` and
      `model_layout_decode` fields, its design and launches by design; the
      WKV backward's at the rwkv6-7b training microbatch, its launches
+     from the `training` phase; the head and loss's (`ce_head`) at
+     rwkv6-7b's microbatch from `timing_ce_head`, its launches and routes
      from the `training` phase), the card's name and power limit, and
      last `{"ok": true, "device": {...}}`.
 
@@ -418,6 +428,9 @@ EXPERT_TOKENS = (32768, 8192)
 # layer pattern (w, w, w, full) at published width, (rows, prompt tokens)
 # past the 1,024-token window
 EXPERT_SERVED = (2, 2048)
+# the training head and loss: rwkv6-7b's microbatch (2 x 4,096 tokens),
+# its width and vocabulary
+CE_HEAD = (8192, 4096, 65536)
 PROJECTIONS_PER_LAYER = 7    # wq, wk, wv, wo, w_gate, w_up, w_down
 # Card (kernel) against CPU (plain versions) in float32 at full width:
 # both sum in f32 in different orders, ~1e-6 relative per product; over 16
@@ -3462,6 +3475,97 @@ def attention_timing(dev) -> list[dict]:
     return rows
 
 
+def ce_head_timing(dev) -> dict:
+    """`timing_ce_head`: `CEHead` forward and backward at `CE_HEAD` (M rows
+    of bf16 hidden states, K, V), random bf16 x, a head of N(0, 4 / K) and
+    labels with a tenth masked: kernel ms (the fused route), the bound
+    (`ce_head_bound_ms`), and the plain route's ms, `_ce_chunk` over 8
+    chunks of rows under `torch.utils.checkpoint` (the route every call
+    took before the kernels, cuBLAS in f32: the plain version and the
+    library yardstick at once, so `plain_ms` and `library_ms` are one
+    reading), with the largest error of the kernels' and the plain
+    route's NLL, dX and dW against float64 autograd of the same inputs;
+    fails unless the route is fused, two launches are bit-identical, the
+    NLL is within 1e-5 of float64's, dX's error within twice the plain
+    route's and dW's no larger than the plain route's (which rounds each
+    chunk's dW to bf16 and sums the chunks in bf16)."""
+    import torch
+    import torch.utils.checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_ce_head as CH
+    from repro_torch.models import transformer as TF
+    from repro_torch.roofline.kernel_model import ce_head_bound_ms
+
+    M, K, V = CE_HEAD
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(M, K, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(K, V, device=dev, generator=gen) * (2 / K ** 0.5)) \
+        .bfloat16().requires_grad_()
+    labels = torch.randint(0, V, (M,), device=dev, generator=gen)
+    labels[torch.rand(M, device=dev, generator=gen) < 0.1] = -1
+    p = CH.route(x, w)
+
+    def fused():
+        xr = x.detach().requires_grad_()
+        nll, cnt = CH.ce_head(xr, w, labels, p)
+        return (nll.detach(), *torch.autograd.grad(nll / cnt, [xr, w]))
+
+    cfg = get_config("rwkv6-7b")
+    head = {"lm_head": {"w": w}}
+
+    def f32_path():
+        xr = x.detach().reshape(2, M // 2, K).requires_grad_()
+        lab = labels.reshape(2, M // 2)
+        n, S = 8, M // 2 // 8
+        nll = cnt = 0
+        for c in range(n):
+            a, b = torch.utils.checkpoint.checkpoint(
+                TF._ce_chunk, cfg, head, xr[:, c * S:(c + 1) * S],
+                lab[:, c * S:(c + 1) * S], use_reentrant=False)
+            nll, cnt = nll + a, cnt + b
+        return (nll.detach(), *torch.autograd.grad(nll / cnt, [xr, w]))
+
+    def f64():
+        xr = x.double().requires_grad_()
+        wr = w.detach().double().requires_grad_()
+        z = xr @ wr
+        keep = labels >= 0
+        ll = torch.gather(z, 1, labels.clamp(min=0)[:, None])[:, 0]
+        nll = ((torch.logsumexp(z, -1) - ll) * keep).sum()
+        return (nll.detach(), *torch.autograd.grad(nll / keep.sum(),
+                                                   [xr, wr]))
+
+    def err(u, v):
+        return float((u.double() - v.reshape(u.shape)).abs().max())
+
+    a, b = fused(), fused()
+    ref = f32_path()
+    exact = f64()
+    row = {"M": M, "K": K, "V": V, "route": p.route, "splits": p.splits,
+           "chunk_rows": p.chunk_rows, "grad_splits": p.grad_splits,
+           "nll": float(a[0]), "f32_nll": float(ref[0]),
+           "f64_nll": float(exact[0]),
+           "bit_identical": all(torch.equal(u, v) for u, v in zip(a, b)),
+           "dx_err": err(a[1], exact[1]), "f32_path_dx_err": err(
+               ref[1], exact[1]),
+           "dw_err": err(a[2], exact[2]), "f32_path_dw_err": err(
+               ref[2], exact[2])}
+    del a, b, ref, exact
+    row["ms"] = gpu_ms(fused, TIMED_REPS, True)
+    row["plain_ms"] = row["library_ms"] = gpu_ms(f32_path, PLAIN_REPS, True)
+    row["bound_ms"], row["bound_by"] = ce_head_bound_ms(M, K, V)
+    say("timing_ce_head", **row)
+    if p.route != "fused" or not row["bit_identical"] or abs(
+            row["nll"] - row["f64_nll"]) > 1e-5 * abs(row["f64_nll"]) \
+            or row["dx_err"] > 2 * row["f32_path_dx_err"] \
+            or row["dw_err"] > row["f32_path_dw_err"]:
+        fail(f"timing_ce_head: {row}")
+    del x, w
+    torch.cuda.empty_cache()
+    return row
+
+
 def expert_timing(dev) -> list[dict]:
     """`timing_expert`: the grouped ternary expert kernel at Mellum's
     expert shapes (`EXPERT_KN`), the rows of `EXPERT_TOKENS` tokens routed
@@ -3869,6 +3973,7 @@ def training_phase(dev, smi: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import cuda_ce_head as CH
     from repro_torch.kernels import cuda_rwkv6_scan as CW
     from repro_torch.kernels import cuda_ternary_matmul as CT
     from repro_torch.kernels import ops
@@ -3943,6 +4048,7 @@ def training_phase(dev, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         CW.reset_launches()
         CT.reset_launches()
+        CH.reset_launches()
         ops.rwkv6_scan_heads = capture
         try:
             params, opt, res, log, seconds = train_run(trainer, params, opt,
@@ -3950,12 +4056,21 @@ def training_phase(dev, smi: str) -> dict:
         finally:
             ops.rwkv6_scan_heads = real
         launches = dict(CW.LAUNCHES)
+        ce = {"launches": CH.LAUNCHES["ce_head"],
+              "by_route": dict(CH.VARIANT_LAUNCHES)}
         res["times"] = trainer.stats.times
         row = summary(cfg, TRAIN_RWKV_BATCH, res, seconds, TRAIN_STEPS,
                       torch.cuda.max_memory_allocated())
         per = cfg.n_layers * TRAIN_RWKV_MICRO * TRAIN_STEPS
         want = {"rwkv6_scan": 2 * per, "rwkv6_scan_bwd": per}
+        # each loss call: ce_lse's 2 launches, then 3 a chunk of rows
+        calls = TRAIN_RWKV_MICRO * TRAIN_STEPS
+        M = TRAIN_RWKV_BATCH // TRAIN_RWKV_MICRO * TRAIN_SEQ
+        chunks = -(-M // CH.chunk_rows(M, cfg.d_model))
+        ce_want = {"launches": calls * (2 + 3 * chunks),
+                   "by_route": {"fused": calls, "plain": 0}}
         row |= {"launches": launches, "expected": want,
+                "ce_head": ce, "ce_head_expected": ce_want,
                 "ternary_matmul_launches": CT.LAUNCHES["ternary_matmul"],
                 "opt_8bit": True, "grad_compress": True,
                 "microbatches": TRAIN_RWKV_MICRO, "remat": cfg.remat,
@@ -3966,6 +4081,10 @@ def training_phase(dev, smi: str) -> dict:
             fail(f"training: rwkv6-7b launched {launches}, expected {want} "
                  "(forward twice a layer a microbatch a step under remat, "
                  "the backward once)")
+        if ce != ce_want:
+            fail(f"training: rwkv6-7b's loss launched {ce}, expected "
+                 f"{ce_want} (every call fused: 2 forward launches and 3 "
+                 f"for each of {chunks} chunks)")
         # one step under the profiler: the device's busy share
         batch = pipe.batch_at(0)
         prof = device_profile(lambda: trainer.train_step(
@@ -4884,6 +5003,7 @@ def main() -> int:
     tm_rows = ternary_timing(dev)
     attention_timing(dev)
     ex_rows, ex_served = expert_timing(dev)
+    ce_row = ce_head_timing(dev)
     wkv_rows, pop_rows = rwkv_popcount_timing(rwkv, {
         "arrhythmia readings": reading_words,
         "random": torch.randint(-2 ** 31, 2 ** 31 - 1, (65536, 32),
@@ -5107,6 +5227,24 @@ def main() -> int:
          "mismatches": sum(r["max_err_over_envelope"] > 1 for r in ex_rows),
          "shape": "mellum2-12b-a2.5b w_gate over 32768 tokens top 8 of "
                   "64 experts: M 262144, K 2304, N 896, bf16"},
+        {"name": "ce_head", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ce_head.cu",
+         "replaces": None,
+         "note": "no Pallas kernel: the reference leaves the head and the "
+                 "loss to XLA einsums (src/repro/models/transformer.py "
+                 "chunked_ce_loss); this trains the port's bf16 models "
+                 "with an untied head",
+         "launches": train["rwkv"]["ce_head"]["launches"],
+         "launches_by_route": train["rwkv"]["ce_head"]["by_route"],
+         "ms": ce_row["ms"], "plain_ms": ce_row["plain_ms"],
+         "bound_ms": ce_row["bound_ms"], "bound_by": ce_row["bound_by"],
+         "library_ms": ce_row["library_ms"],
+         "errors": {k: ce_row[k] for k in (
+             "nll", "f32_nll", "f64_nll", "dx_err", "f32_path_dx_err",
+             "dw_err", "f32_path_dw_err")},
+         "bit_identical": ce_row["bit_identical"],
+         "shape": "rwkv6-7b training microbatch: M 8192, K 4096, "
+                  "V 65536, bf16, forward and backward"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

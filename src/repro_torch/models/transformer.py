@@ -31,7 +31,9 @@ pass writes each stack's gradient once.
 Training: `loss_fn` is the reference's objective, the mean label NLL from
 `chunked_ce_loss` (the (B, S, V) logits computed S-chunk by S-chunk) plus
 `MOE_AUX_COEF` times the MoE load-balancing loss `forward` carries; with
-`cfg.remat` each layer is recomputed in the backward pass.  While a
+`cfg.remat` each layer is recomputed in the backward pass.  On the card,
+a bf16 model with an untied head computes the loss on the tensor cores
+(`kernels.cuda_ce_head`), and no logits reach device memory.  While a
 profiler records, each attention call (scores, mask, softmax, values) is
 the span `model.attention` (attr `window`: the layer's window, or None),
 each MoE FFN `model.moe`, and the loss's forward and backward are
@@ -57,6 +59,7 @@ import torch.utils.checkpoint
 
 from repro_torch import trace as TR
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import cuda_ce_head as CH
 from repro_torch.models import attention as ATT
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -388,19 +391,32 @@ def chunked_ce_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
     the backward pass too holds one chunk's logits at a time.  Returns
     (sum of NLL over labels >= 0, their count), both f32 scalars.
 
+    A bf16 call on the card with an untied head takes the fused route
+    (`kernels.cuda_ce_head`): the head's products on the tensor cores and
+    no logits in device memory, the same function at f32 precision.
+
     While a profiler records, the forward is the span `model.loss`, and
     a hook on `x` closes the open `model.loss.backward` (which
     `train.loop.grads_of` begins) once x's gradient is whole: the
     chunks' backward and their recompute lie inside it."""
+    if TR.on() and torch.is_grad_enabled() and x.requires_grad:
+        # the loss's backward ends where the gradient of x is whole
+        x.register_hook(TR.closer("model.loss.backward"))
+    if cfg.tie_embeddings:
+        w, bias = params["embed"]["tokens"].T, False
+    else:
+        w, bias = params["lm_head"]["w"], "b" in params["lm_head"]
+    p = CH.route(x, w, bias)
+    CH.count_route(p.route)
+    if p.route == "fused":
+        with TR.span("model.loss"):
+            return CH.ce_head(x, w, labels, p)
     B, S, _ = x.shape
     n_chunks = max(1, min(n_chunks, S))
     while S % n_chunks:
         n_chunks -= 1
     Sc = S // n_chunks
     remat = cfg.remat and torch.is_grad_enabled()
-    if TR.on() and torch.is_grad_enabled() and x.requires_grad:
-        # the loss's backward ends where the gradient of x is whole
-        x.register_hook(TR.closer("model.loss.backward"))
     with TR.span("model.loss"):
         nll = n_tok = _zero(x)
         for c in range(n_chunks):

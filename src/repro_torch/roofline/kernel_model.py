@@ -14,7 +14,7 @@ Peaks (NVIDIA H100 SXM data sheet):
   * `INT32_OPS_PER_S`   67e12 32-bit integer ops/s on the CUDA cores (the
     gate walk's word logic, the popcount);
   * `BF16_FLOP_PER_S`   989e12 dense bf16 tensor-core FLOP/s (the ternary
-    matmul, the fused prefill attention);
+    matmul, the fused prefill attention, the training head and loss);
   * `F32_FLOP_PER_S`    67e12 f32 FLOP/s on the CUDA cores (the WKV-6
     scan and its backward, `wkv_bound_ms` and `wkv_bwd_bound_ms`, and
     every float32 product of the port, which runs with TF32 off);
@@ -302,6 +302,24 @@ def attention_bound_ms(B: int, Sq: int, Sk: int, H: int, K: int, dh: int,
     """Least time for prefill attention (`attention_roofline`)."""
     rl = attention_roofline(B, Sq, Sk, H, K, dh, causal, window, q_offset,
                             x_bytes)
+    return rl.bound_ms, rl.dominant
+
+
+def ce_head_roofline(M: int, K: int, V: int) -> Roofline:
+    """The training head and cross-entropy, forward and backward
+    (`csrc/ce_head.cu`): bf16 x (M, K) and the head (K, V) read once, the
+    int32 labels read once, bf16 dX and dW written once, against 8 passes
+    of 2 M K V flops at the bf16 tensor-core rate (the forward, the
+    backward's recompute, dX and dW on three bf16 terms of dlogits each).
+    The planes of dlogits, which the kernels write and read back, are
+    the design's and not counted."""
+    return Roofline(float(2 * (2 * M * K + 2 * K * V) + 4 * M),
+                    8 * 2.0 * M * K * V, BF16_FLOP_PER_S)
+
+
+def ce_head_bound_ms(M: int, K: int, V: int) -> tuple[float, str]:
+    """Least time for the training head and loss (`ce_head_roofline`)."""
+    rl = ce_head_roofline(M, K, V)
     return rl.bound_ms, rl.dominant
 
 
